@@ -1,0 +1,338 @@
+#!/usr/bin/env python3
+"""GPU smoke test of refraction_tpu_torch: builds the CUDA kernels, holds
+each against its plain PyTorch version on the card, then drives the main
+path (``python -m refraction_tpu_torch.run``) on procedural scenes at the
+reference demo's scale and at the large-scene scale.
+
+    python3 chip_smoke.py        # needs one CUDA GPU and nvcc
+
+Phases (any failure raises; nothing is caught):
+  0. card name and power limit (nvidia-smi), torch and CUDA versions;
+  1. build csrc/*.cu with nvcc;
+  2. closest-hit kernel vs the brute force, 2^16 seeded rays, both culls;
+  3. env kernel vs the gather, 2^16 directions on a 1024x2048 map;
+  4. frame kernel vs the eager integrator at 256x192 (five cases) and on
+     the 81,920-triangle scene at 160x90;
+  5. the CLI on the demo configuration (1024x768, 5/2 bounces, 8 orbit
+     frames, 1,280 triangles) and on the large scene (1920x1080, 4
+     bounces, 4 frames, 81,920 triangles); the frame kernel must be
+     launched exactly once per frame.
+
+The line before the last is a JSON object with each kernel's launches in
+phase 5, its error against the plain version and both times; the last
+line is ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero
+and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+# Tolerances (stated once, used by every phase):
+HIT_AGREE = 0.9999      # share of rays with equal hit mask and idx
+T_RTOL = 1e-5           # relative t error where idx agrees
+ENV_AGREE = 0.9999      # share of directions with an equal texel
+IMG_RMSE = 1e-4         # frame RMSE against the plain version
+PIX_TOL = 1e-3          # a pixel "differs" if any channel is off by more
+PIX_SHARE = 1e-4        # ... and at most this share of pixels may differ
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Mean ms per call of ``fn`` on the current stream (CUDA events),
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def image_diff(np, a, b) -> dict:
+    a = a.detach().cpu().numpy().astype(np.float64)
+    b = b.detach().cpu().numpy().astype(np.float64)
+    d = np.abs(a - b)
+    return {"rmse": float(np.sqrt(np.mean(d ** 2))),
+            "max_abs_err": float(d.max()),
+            "share_over": float((d.max(axis=-1) > PIX_TOL).mean())}
+
+
+def check_image(tag: str, diff: dict) -> None:
+    log(f"  {tag}: rmse {diff['rmse']:.3e} max_abs {diff['max_abs_err']:.3e} "
+        f"share>{PIX_TOL:g} {diff['share_over']:.2e}")
+    if not (diff["rmse"] < IMG_RMSE and diff["share_over"] <= PIX_SHARE):
+        raise AssertionError(f"{tag}: frame kernel disagrees with the plain "
+                             f"version: {diff}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log("phase 0: nvidia-smi --query-gpu=name,power.limit:")
+    log(card)
+    log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} "
+        f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    import numpy as np
+
+    from refraction_tpu_torch import RenderConfig
+    from refraction_tpu_torch.camera import orbit_camera
+    from refraction_tpu_torch.fixtures import (
+        make_cube, make_gradient_envmap, make_icosphere, write_scene)
+    from refraction_tpu_torch.kernels import _build
+    from refraction_tpu_torch.kernels.envmap import (
+        env_contribution, env_contribution_plain)
+    from refraction_tpu_torch.kernels.framekernel import (
+        build_scalars, fused_radiance, fused_radiance_plain)
+    from refraction_tpu_torch.kernels.intersect import (
+        closest_hit, closest_hit_plain)
+    from refraction_tpu_torch.render import sample_offsets
+    from refraction_tpu_torch.scene import (
+        auto_cluster_size, build_scene, load_scene, scene_from_jax)
+    from refraction_tpu_torch import run as cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    results = {}
+
+    # --- phase 1: build -------------------------------------------------
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"phase 1: built {os.path.basename(_build.BuildInfo.path)} in "
+        f"{_build.BuildInfo.seconds:.1f} s nvcc "
+        f"({time.perf_counter() - t0:.1f} s with load)")
+    for line in _build.BuildInfo.log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    def device_scene(mesh, env, cluster_size=None):
+        cs = cluster_size or auto_cluster_size(mesh.num_tris)
+        return scene_from_jax(build_scene(mesh, env, cs)[0], dev)
+
+    # --- phase 2: closest hit -------------------------------------------
+    log("phase 2: closest-hit kernel vs brute force")
+    rng = np.random.default_rng(2)
+    n = 2 ** 16
+    o_np = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    d_np = rng.normal(size=(n, 3)).astype(np.float32)
+    d_np /= np.linalg.norm(d_np, axis=1, keepdims=True)
+    o = torch.from_numpy(o_np).to(dev)
+    d = torch.from_numpy(d_np).to(dev)
+    env_small = make_gradient_envmap(64, 128)
+    ch_times = None
+    for name, mesh in (("icosphere4", make_icosphere(4)),
+                       ("cube2", make_cube(2.0))):
+        sc = device_scene(mesh, env_small)
+        for cull_v in (1.0, -1.0):
+            cull = torch.full((n,), cull_v, dtype=torch.float32, device=dev)
+            tk, ik, nk = closest_hit(sc, o, d, cull, 1e-4, 100.0)
+            tp, ip, np_ = closest_hit_plain(sc, o, d, cull, 1e-4, 100.0)
+            torch.cuda.synchronize()
+            same = (ik == ip)
+            agree = float(same.float().mean())
+            hit = same & (ik >= 0)
+            t_err = float(((tk - tp).abs() / tp.abs().clamp_min(1e-30))[hit]
+                          .max()) if bool(hit.any()) else 0.0
+            n_err = float((nk - np_).abs()[hit].max()) if bool(hit.any()) else 0.0
+            log(f"  {name} cull {cull_v:+.0f}: idx/hit agree {agree:.6f}, "
+                f"hits {int((ip >= 0).sum())}, t rel err {t_err:.2e}, "
+                f"normal abs err {n_err:.2e}")
+            if agree < HIT_AGREE or t_err > T_RTOL:
+                raise AssertionError(f"closest_hit {name} cull {cull_v}")
+            if name == "icosphere4" and cull_v > 0:
+                ch_times = (
+                    cuda_ms(torch, lambda: closest_hit(
+                        sc, o, d, cull, 1e-4, 100.0), 20),
+                    cuda_ms(torch, lambda: closest_hit_plain(
+                        sc, o, d, cull, 1e-4, 100.0), 3),
+                    t_err)
+    results["closest_hit"] = ch_times
+    log(f"  time at 2^16 rays x 5120 tris: kernel {ch_times[0]:.3f} ms, "
+        f"plain {ch_times[1]:.3f} ms")
+
+    # --- phase 3: env ---------------------------------------------------
+    log("phase 3: env kernel vs gather")
+    env_big = make_gradient_envmap(1024, 2048)
+    sc_env = device_scene(make_cube(2.0), env_big, 8)
+    de = torch.from_numpy(d_np).to(dev)
+    w_np = np.where(rng.random(n) < 0.8, rng.random(n), 0.0).astype(np.float32)
+    w = torch.from_numpy(w_np).to(dev)
+    ek = env_contribution(sc_env, de, w)
+    ep = env_contribution_plain(sc_env, de, w)
+    torch.cuda.synchronize()
+    env_agree = float((ek == ep).all(dim=1).float().mean())
+    env_err = float((ek - ep).abs().max())
+    log(f"  texel agree {env_agree:.6f} (max abs err {env_err:.3e})")
+    if env_agree < ENV_AGREE:
+        raise AssertionError("env kernel disagrees with the gather")
+    results["env"] = (
+        cuda_ms(torch, lambda: env_contribution(sc_env, de, w), 50),
+        cuda_ms(torch, lambda: env_contribution_plain(sc_env, de, w), 20),
+        env_err)
+    log(f"  time at 2^16 rays: kernel {results['env'][0]:.4f} ms, "
+        f"plain {results['env'][1]:.4f} ms")
+
+    # --- phase 4: frame kernel vs eager integrator ----------------------
+    log("phase 4: frame kernel vs eager integrator")
+    env_mid = make_gradient_envmap(256, 512)
+    sphere = device_scene(make_icosphere(3, 1.2), env_mid)
+    cube = device_scene(make_cube(2.0), env_mid)
+    base = RenderConfig(width=256, height=192)
+    cases = [("sphere default", sphere, base, 0.85),
+             ("sphere spp4", sphere, base.replace(spp=4), 0.85),
+             ("cube", cube, base, 0.3),
+             ("sphere caps(1,0)", sphere,
+              base.replace(max_refract_depth=1, max_reflect_depth=0), 0.5),
+             ("sphere 250x190", sphere, base.replace(width=250, height=190),
+              0.6),
+             ("icosphere6 81920 tris 160x90", device_scene(
+                 make_icosphere(6, 1.2), env_mid),
+              RenderConfig(width=160, height=90, max_refract_depth=4), 0.2)]
+    for tag, sc, cfg, angle in cases:
+        scal = build_scalars(orbit_camera(angle, cfg), cfg,
+                             sample_offsets(cfg.spp), dev)
+        img_k = fused_radiance(sc, scal, cfg)
+        img_p = fused_radiance_plain(sc, scal, cfg)
+        torch.cuda.synchronize()
+        if tuple(img_k.shape) != (cfg.height, cfg.width, 3):
+            raise AssertionError(f"{tag}: shape {tuple(img_k.shape)}")
+        check_image(tag, image_diff(np, img_k, img_p))
+
+    # --- phase 5: the main path through the CLI -------------------------
+    log("phase 5: main path (python -m refraction_tpu_torch.run)")
+    tmp = tempfile.mkdtemp(prefix="rt_smoke_")
+    frame_lines = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith('{"frame"'):
+                frame_lines.append(json.loads(msg))
+
+    cap = Capture()
+    logging.getLogger("refraction_tpu").addHandler(cap)
+    runs = [("demo", make_icosphere(3, 1.2), 1024, 768, 5, 8),
+            ("large", make_icosphere(6, 1.2), 1920, 1080, 4, 4)]
+    paths = {}
+    for tag, mesh, *_ in runs:
+        paths[tag] = write_scene(tmp, tag, mesh, make_gradient_envmap(1024, 2048))
+    launches = {"frame": 0, "closest_hit": 0, "env": 0}
+    per_frame = {}
+    try:
+        fused_radiance.launches = 0
+        closest_hit.launches = 0
+        env_contribution.launches = 0
+        for tag, mesh, wd, ht, bounces, frames in runs:
+            before = fused_radiance.launches
+            del frame_lines[:]
+            out = os.path.join(tmp, tag, "frame.png")
+            rc = cli.main(["--scene", paths[tag][0], "--envmap", paths[tag][1],
+                           "--width", str(wd), "--height", str(ht),
+                           "--bounces", str(bounces), "--spp", "1",
+                           "--frames", str(frames), "--out", out, "--raw",
+                           "--device", "cuda"])
+            torch.cuda.synchronize()
+            got = fused_radiance.launches - before
+            if rc != 0 or got != frames:
+                raise AssertionError(f"{tag}: rc {rc}, frame kernel launched "
+                                     f"{got} times for {frames} frames")
+            for i in range(frames):
+                raw = np.load(os.path.join(tmp, tag, f"frame_{i:04d}.npy"))
+                if raw.shape != (ht, wd, 3) or not np.isfinite(raw).all():
+                    raise AssertionError(f"{tag} frame {i}: shape {raw.shape}"
+                                         " or non-finite values")
+                if float(raw.std()) == 0.0:
+                    raise AssertionError(f"{tag} frame {i}: constant image")
+            ms = [f["stream_ms"] for f in frame_lines]
+            per_frame[tag] = ms
+            log(f"  {tag} {wd}x{ht} {mesh.num_tris} tris, {bounces} bounces: "
+                f"{frames} frames, frame-kernel launches {got}; stream ms per "
+                f"frame {[round(m, 3) for m in ms]} [{card}]")
+        launches = {"frame": fused_radiance.launches,
+                    "closest_hit": closest_hit.launches,
+                    "env": env_contribution.launches}
+    finally:
+        logging.getLogger("refraction_tpu").removeHandler(cap)
+    log(f"  launches during phase 5: {launches}")
+
+    # Kernel vs plain at the demo shape, on the demo scene the CLI loaded.
+    cfg = RenderConfig(width=1024, height=768, max_refract_depth=5,
+                       scene_path=paths["demo"][0],
+                       envmap_path=paths["demo"][1])
+    demo = scene_from_jax(load_scene(cfg)[0], dev)
+    scal = build_scalars(orbit_camera(0.01, cfg), cfg, sample_offsets(1), dev)
+    img_k = fused_radiance(demo, scal, cfg)
+    img_p = fused_radiance_plain(demo, scal, cfg)
+    torch.cuda.synchronize()
+    diff = image_diff(np, img_k, img_p)
+    check_image("demo 1024x768 kernel vs plain", diff)
+    frame_ms = cuda_ms(torch, lambda: fused_radiance(demo, scal, cfg), 10)
+    plain_ms = cuda_ms(torch, lambda: fused_radiance_plain(demo, scal, cfg), 1)
+    log(f"  demo 1024x768 5/2 bounces: frame kernel {frame_ms:.3f} ms, "
+        f"plain (eager integrator, same shape) {plain_ms:.1f} ms [{card}]")
+    cfg_l = RenderConfig(width=1920, height=1080, max_refract_depth=4,
+                         scene_path=paths["large"][0],
+                         envmap_path=paths["large"][1])
+    large = scene_from_jax(load_scene(cfg_l)[0], dev)
+    scal_l = build_scalars(orbit_camera(0.01, cfg_l), cfg_l, sample_offsets(1),
+                           dev)
+    large_ms = cuda_ms(torch, lambda: fused_radiance(large, scal_l, cfg_l), 10)
+    log(f"  large 1920x1080 4 bounces: frame kernel {large_ms:.3f} ms [{card}]")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    if launches["frame"] != sum(r[-1] for r in runs):
+        raise AssertionError(f"frame kernel launches {launches['frame']}")
+    kern = [{"name": "frame", "route": "cuda",
+             "source": "refraction_tpu_torch/csrc/frame.cu",
+             "replaces": "refraction_tpu/kernels/framekernel.py:106",
+             "launches": launches["frame"], "max_abs_err": diff["max_abs_err"],
+             "ms": frame_ms, "plain_ms": plain_ms}]
+    off_path = [
+        {"name": "closest_hit", "route": "cuda",
+         "source": "refraction_tpu_torch/csrc/closest_hit.cu",
+         "replaces": "refraction_tpu/kernels/intersect_pallas.py:140",
+         "launches": launches["closest_hit"],
+         "max_rel_t_err": results["closest_hit"][2],
+         "ms": results["closest_hit"][0], "plain_ms": results["closest_hit"][1]},
+        {"name": "env", "route": "cuda",
+         "source": "refraction_tpu_torch/csrc/env.cu",
+         "replaces": "refraction_tpu/kernels/envmap_pallas.py:130",
+         "launches": launches["env"], "max_abs_err": results["env"][2],
+         "ms": results["env"][0], "plain_ms": results["env"][1]}]
+    print(json.dumps({"kernels": kern, "off_path_kernels": off_path,
+                      "frame_stream_ms": per_frame,
+                      "frame_ms_large": large_ms, "card": card}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

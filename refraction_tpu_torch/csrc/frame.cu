@@ -1,0 +1,161 @@
+// Whole frame in one launch: raygen, the bounded refraction/reflection tree,
+// closest hit, env miss radiance and the spp average, one thread per pixel.
+//
+// Replaces refraction_tpu/kernels/framekernel.py::frame_call (724-925,
+// pallas_call at 917) and its kernel bodies _frame_kernel (106) and the
+// layout variants _frame_kernel_coded (662), _frame_kernel_bcast (670),
+// _frame_kernel_bcast_coded (678), _frame_kernel_streamed (686) and
+// _frame_kernel_streamed_coded (697). The variants differ only in where the
+// TPU keeps operands (scalar memory vs streamed records from HBM, coded vs
+// float env, a broadcast triangle table); this kernel reads the float
+// tables from global memory at any size, so it computes what all six do.
+//
+// The TPU kernel keeps a 32x32 tile's ray front in a VMEM slot pool and
+// runs it level by level (widths 1, 2, 4, ...). On the H100 each thread
+// runs its pixel's tree depth-first with an explicit stack of pending rays
+// (origin, direction, weight, side, count): popping a ray traces it; a miss
+// adds weight * env; a hit below the depth cap pushes the refraction child
+// (weight * (1 - R), side flipped, none on TIR) and, while
+// count < max_reflect, the reflection child (weight * R, same side, pushed
+// on every hit, TIR included). Each branching level leaves at most one
+// pending sibling, so the stack never holds more than
+// min(max_reflect, max_refract) + 1 rays; the wrapper checks that against
+// RT_MAX_STACK. The result is written straight into the (H, W, 3) image,
+// times 1/spp: no tile order and no padding, which were TPU layout.
+//
+// Bound on the H100: traversal latency and warp divergence (neighbouring
+// pixels' trees differ in depth and visit different boxes), not FLOPs or
+// DRAM bandwidth: the scene tables (~100 KB to ~6 MB) stay in L1/L2, and
+// the image write is 12 bytes per pixel. The first version keeps the
+// design simple: 16x8 pixel blocks so a warp covers a compact 16x2 patch
+// with similar rays; the stack lives in local memory (L1-resident).
+//
+// Scalar vector layout (as framekernel.py:96-103):
+//   [0:9]   proj_inv rows 0..2 of columns (0, 1, 3)
+//   [9:12]  camera origin
+//   [12:16] tmin/tmax primary, tmin/tmax secondary
+//   [16]    ior      [17] fresnel r0
+//   [18:18+2*spp] sub-pixel jitter (x, y) per sample
+
+#include <cuda_runtime.h>
+
+#include "envmap.cuh"
+#include "traverse.cuh"
+
+#define RT_MAX_STACK 8
+
+struct RtRay {
+  float ox, oy, oz, dx, dy, dz, w, cull;  // cull: +1 outside, -1 inside
+  int count;
+};
+
+__global__ void __launch_bounds__(128) rt_frame_kernel(
+    const float* __restrict__ sc, const float* __restrict__ tri,
+    const float* __restrict__ norm, const float* __restrict__ clusters,
+    const float* __restrict__ subs, const float* __restrict__ env,
+    float* __restrict__ out, int width, int height, int spp, float inv_spp,
+    int max_refract, int max_reflect, int n_clusters, int cluster_size,
+    int sub_tris, int env_h, int env_w) {
+  const int px = blockIdx.x * blockDim.x + threadIdx.x;
+  const int py = blockIdx.y * blockDim.y + threadIdx.y;
+  if (px >= width || py >= height) return;
+
+  const float tmin_p = sc[12], tmax_p = sc[13];
+  const float tmin_s = sc[14], tmax_s = sc[15];
+  const float ior = sc[16], r0 = sc[17];
+  const float eta_out = 1.0f / ior;  // entering the dielectric
+  const float fres_scale = r0 * (1.0f - r0);
+
+  RtRay stack[RT_MAX_STACK];
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+
+  for (int s = 0; s < spp; ++s) {
+    // Raygen (camera.py:98-135): no w-divide, DirectX y flip.
+    const float jx = sc[18 + 2 * s], jy = sc[19 + 2 * s];
+    const float sx = ((float)px + jx) / (float)width * 2.0f - 1.0f;
+    const float sy = -(((float)py + jy) / (float)height * 2.0f - 1.0f);
+    const float rx = sc[0] * sx + sc[1] * sy + sc[2];
+    const float ry = sc[3] * sx + sc[4] * sy + sc[5];
+    const float rz = sc[6] * sx + sc[7] * sy + sc[8];
+    const float inv_len = 1.0f / sqrtf(rx * rx + ry * ry + rz * rz);
+
+    int sp = 0;
+    stack[sp++] = RtRay{sc[9], sc[10], sc[11], rx * inv_len, ry * inv_len,
+                        rz * inv_len, 1.0f, 1.0f, 0};
+    while (sp > 0) {
+      const RtRay r = stack[--sp];
+      const bool primary = r.count == 0;
+      const bool at_cap = r.count == max_refract;
+      const RtHit h = rt_closest_hit(
+          tri, norm, clusters, subs, n_clusters, cluster_size, sub_tris,
+          r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.cull,
+          primary ? tmin_p : tmin_s, primary ? tmax_p : tmax_s, at_cap);
+      if (h.idx < 0) {
+        if (r.w > 0.0f) {  // miss shader (RayTracing.hlsl:127-137)
+          const int f = rt_env_texel(r.dx, r.dy, r.dz, env_h, env_w);
+          acc_r += r.w * __ldg(env + 3 * f);
+          acc_g += r.w * __ldg(env + 3 * f + 1);
+          acc_b += r.w * __ldg(env + 3 * f + 2);
+        }
+        continue;
+      }
+      if (at_cap) continue;  // hits at the cap add black (hlsl:82)
+
+      // ClosestHit (RayTracing.hlsl:79-123), as integrator._shade_hits.
+      const bool outside = r.cull > 0.0f;
+      const float nlen = sqrtf(h.nx * h.nx + h.ny * h.ny + h.nz * h.nz);
+      float nx = h.nx / nlen, ny = h.ny / nlen, nz = h.nz / nlen;
+      if (!outside) { nx = -nx; ny = -ny; nz = -nz; }
+      const float hx = r.ox + h.t * r.dx;
+      const float hy = r.oy + h.t * r.dy;
+      const float hz = r.oz + h.t * r.dz;
+      const float cosi = r.dx * nx + r.dy * ny + r.dz * nz;
+      const float base = 1.0f - cosi;
+      const float fres = fres_scale * (base * base) * (base * base) * base;
+
+      if (r.count < max_reflect) {  // reflection child, every hit
+        float fx = r.dx - 2.0f * cosi * nx;
+        float fy = r.dy - 2.0f * cosi * ny;
+        float fz = r.dz - 2.0f * cosi * nz;
+        const float flen = sqrtf(fx * fx + fy * fy + fz * fz);
+        fx /= flen; fy /= flen; fz /= flen;
+        stack[sp++] = RtRay{hx, hy, hz, fx, fy, fz, r.w * fres, r.cull,
+                            r.count + 1};
+      }
+      const float eta = outside ? eta_out : ior;
+      const float k = 1.0f - eta * eta * (1.0f - cosi * cosi);
+      if (k >= 0.0f) {  // refraction child; none on TIR
+        const float coef = eta * cosi + sqrtf(k);
+        float tx = eta * r.dx - coef * nx;
+        float ty = eta * r.dy - coef * ny;
+        float tz = eta * r.dz - coef * nz;
+        float tlen = sqrtf(tx * tx + ty * ty + tz * tz);
+        if (!(tlen > 0.0f)) tlen = 1.0f;
+        tx /= tlen; ty /= tlen; tz /= tlen;
+        stack[sp++] = RtRay{hx, hy, hz, tx, ty, tz, r.w * (1.0f - fres),
+                            -r.cull, r.count + 1};
+      }
+    }
+  }
+  float* o = out + 3 * ((size_t)py * width + px);
+  o[0] = acc_r * inv_spp;
+  o[1] = acc_g * inv_spp;
+  o[2] = acc_b * inv_spp;
+}
+
+extern "C" int rt_frame(const float* scalars, const float* tri,
+                        const float* norm, const float* clusters,
+                        const float* subs, const float* env, float* out,
+                        int width, int height, int spp, float inv_spp,
+                        int max_refract, int max_reflect, int n_clusters,
+                        int cluster_size, int sub_tris, int env_h, int env_w,
+                        void* stream) {
+  const dim3 block(16, 8);
+  const dim3 grid((width + block.x - 1) / block.x,
+                  (height + block.y - 1) / block.y);
+  rt_frame_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      scalars, tri, norm, clusters, subs, env, out, width, height, spp,
+      inv_spp, max_refract, max_reflect, n_clusters, cluster_size, sub_tris,
+      env_h, env_w);
+  return (int)cudaGetLastError();
+}

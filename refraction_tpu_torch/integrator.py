@@ -1,0 +1,144 @@
+"""Eager wavefront integrator: port of `refraction_tpu.integrator.render_pixels`.
+
+The reference's bounded per-pixel ray tree flattened level by level, with
+static widths: the front at count k is ``N * 2^min(k, max_reflect)`` wide.
+A refraction child overwrites its parent's slot (weight * (1 - R), side
+flipped, dead on TIR); a reflection child is appended at ``slot + width``
+(weight * R, same side) on every hit, TIR included, while
+``count < max_reflect``. Misses add weight * env; hits at the depth cap add
+black. Slot ``i`` always belongs to pixel ``i % N``.
+
+This is the plain version of the CUDA frame kernel
+(kernels/framekernel.py), which runs the same tree depth-first per pixel.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from refraction_tpu.config import RenderConfig
+from refraction_tpu_torch.camera import CameraFrame, generate_rays
+from refraction_tpu_torch.ops.intersect import interpolate_normal, recompute_uv
+from refraction_tpu_torch.ops.shade import (
+    dot3,
+    f32,
+    fresnel_r,
+    normalize,
+    reflect_dir,
+    refract_dir,
+)
+
+
+def _shade_hits(scene, o, d, outside, t, tri_idx, cfg: RenderConfig,
+                knorm=None):
+    """ClosestHit math (RayTracing.hlsl:79-123) for a batch of rays.
+
+    Returns (hit_point, n_prime, fresnel_R, refract_ok, refract_dir); only
+    meaningful where the caller's hit mask is True. ``knorm`` is the
+    backend's interpolated normal, if it gives one."""
+    if knorm is None:
+        u, v = recompute_uv(o, d, scene.tri_a, scene.tri_e1, scene.tri_e2,
+                            tri_idx)
+        knorm = interpolate_normal(scene.tri_norm_packed, tri_idx, u, v)
+    nsh = normalize(knorm)
+    nprime = torch.where(outside[:, None], nsh, -nsh)
+    hit_p = o + t[:, None] * d
+    r = fresnel_r(dot3(d, nprime), cfg.fresnel_r0)
+    eta = torch.where(outside, torch.full_like(t, f32(1.0 / cfg.ior)),
+                      torch.full_like(t, f32(cfg.ior)))
+    ok, refr = refract_dir(d, nprime, eta)
+    return hit_p, nprime, r, ok, refr
+
+
+def render_pixels(scene, origins: torch.Tensor, dirs: torch.Tensor,
+                  cfg: RenderConfig, intersect_fn: Callable,
+                  env_fn: Callable, collect_stats: bool = False):
+    """Trace N primary rays to completion; returns (N, 3) linear radiance.
+
+    ``env_fn(scene, dirs, weight) -> (W, 3)`` is the weighted miss
+    contribution (weight already zero on non-miss lanes). With
+    ``collect_stats`` returns (radiance, {'rays_traced': int64 scalar
+    tensor, 'slot_rounds': int, 'pixel_rays': (N,) int32}): live lanes
+    entering each trace round, dense slots, and the per-pixel live
+    ray-tree size.
+    """
+    n = origins.shape[0]
+    dev = origins.device
+    f32t = torch.float32
+    safe_dir = torch.tensor([0.0, 1.0, 0.0], dtype=f32t, device=dev)
+
+    o = origins.to(f32t)
+    d = dirs.to(f32t)
+    weight = torch.ones(n, dtype=f32t, device=dev)
+    outside = torch.ones(n, dtype=torch.bool, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    radiance = torch.zeros(n, 3, dtype=f32t, device=dev)
+    rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
+    pixel_rays = torch.zeros(n, dtype=torch.int32, device=dev)
+    slot_rounds = 0
+    zero = torch.zeros((), dtype=f32t, device=dev)
+
+    for count in range(cfg.max_refract_depth + 1):
+        if collect_stats:
+            rays_traced = rays_traced + alive.sum()
+            pixel_rays = pixel_rays + alive.reshape(-1, n).sum(
+                dim=0, dtype=torch.int32)
+            slot_rounds += int(o.shape[0])
+        tmin = cfg.primary_tmin if count == 0 else cfg.secondary_tmin
+        tmax = cfg.primary_tmax if count == 0 else cfg.secondary_tmax
+
+        res = intersect_fn(scene, o, d, outside, alive, tmin, tmax)
+        hit, t, tri_idx, knorm = res
+        hit = hit & alive
+
+        miss_weight = torch.where(alive & ~hit, weight, zero)
+        radiance = radiance + env_fn(scene, d, miss_weight).reshape(
+            -1, n, 3).sum(dim=0)
+
+        if count == cfg.max_refract_depth:
+            break  # hits at the cap contribute black (RayTracing.hlsl:82)
+
+        hit_p, nprime, r, refr_ok, refr = _shade_hits(
+            scene, o, d, outside, t, tri_idx, cfg, knorm=knorm)
+        safe_o = torch.where(hit[:, None], hit_p, o)
+
+        refr_alive = hit & refr_ok
+        new_d = torch.where(refr_alive[:, None], refr, safe_dir)
+        new_weight = torch.where(refr_alive, weight * (1.0 - r), zero)
+        new_outside = torch.where(hit, ~outside, outside)
+
+        if count < cfg.max_reflect_depth:
+            refl = normalize(reflect_dir(d, nprime))
+            refl_d = torch.where(hit[:, None], refl, safe_dir)
+            refl_weight = torch.where(hit, weight * r, zero)
+            o = torch.cat([safe_o, safe_o])
+            d = torch.cat([new_d, refl_d])
+            weight = torch.cat([new_weight, refl_weight])
+            outside = torch.cat([new_outside, outside])
+            alive = torch.cat([refr_alive, hit])
+        else:
+            o, d = safe_o, new_d
+            weight, outside, alive = new_weight, new_outside, refr_alive
+
+    if collect_stats:
+        return radiance, {"rays_traced": rays_traced,
+                          "slot_rounds": slot_rounds,
+                          "pixel_rays": pixel_rays}
+    return radiance
+
+
+def render_image(scene, frame: CameraFrame, cfg: RenderConfig,
+                 offsets: np.ndarray, device: torch.device | str,
+                 intersect_fn: Callable, env_fn: Callable) -> torch.Tensor:
+    """(H, W, 3) image: for each (x, y) jitter pair of ``offsets`` (spp, 2),
+    the primary rays through `render_pixels`; averaged over samples."""
+    acc = None
+    for off in offsets:
+        o, d = generate_rays(frame, cfg.width, cfg.height, device, jitter=off)
+        rad = render_pixels(scene, o, d, cfg, intersect_fn, env_fn)
+        acc = rad if acc is None else acc + rad
+    inv_spp = float(np.float32(1.0 / len(offsets)))
+    return (acc * inv_spp).reshape(cfg.height, cfg.width, 3)

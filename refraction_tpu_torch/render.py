@@ -1,0 +1,96 @@
+"""Frame rendering: camera -> frame kernel (or eager integrator) -> image.
+
+Port of `refraction_tpu.render` (make_renderer, render_frame,
+rays_per_frame, sample_offsets). Two backends:
+
+- ``"cuda"``: the fused path, one frame-kernel launch per frame
+  (kernels/framekernel.fused_radiance). On CPU tensors its wrapper takes
+  the plain version.
+- ``"torch"``: the eager wavefront integrator over the brute-force
+  backend, on any device.
+
+Only the scalar vector (camera, limits, jitter) crosses to the device per
+frame; the result is the (H, W, 3) float32 image on the scene's device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+
+from refraction_tpu.config import RenderConfig
+from refraction_tpu_torch.camera import CameraFrame, orbit_camera
+from refraction_tpu_torch.integrator import render_image
+from refraction_tpu_torch.kernels.framekernel import build_scalars, fused_radiance
+from refraction_tpu_torch.ops.backends import get_backend
+from refraction_tpu_torch.scene import TorchScene
+
+
+def sample_offsets(spp: int) -> np.ndarray:
+    """Deterministic stratified sub-pixel offsets, (spp, 2) in [0, 1).
+
+    A copy of `refraction_tpu.render.sample_offsets` (that module imports
+    JAX). spp=1 gives the reference's pixel centres; square spp a k x k
+    grid; otherwise the first spp cells of the next square grid,
+    recentred so the mean sample sits at the pixel centre.
+    """
+    if spp == 1:
+        return np.array([[0.5, 0.5]], np.float32)
+    k = math.ceil(math.sqrt(spp))
+    cells = [((i + 0.5) / k, (j + 0.5) / k) for j in range(k) for i in range(k)]
+    off = np.asarray(cells[:spp], np.float32)
+    if k * k != spp:
+        off = off + (np.float32(0.5) - off.mean(axis=0, dtype=np.float32))
+    return off
+
+
+def make_renderer(cfg: RenderConfig, backend: str = "cuda",
+                  device: torch.device | str = "cuda",
+                  ) -> Callable[[TorchScene, CameraFrame], torch.Tensor]:
+    """Build a (scene, frame) -> (H, W, 3) renderer for ``cfg``.
+
+    ``backend`` is ``"cuda"`` (fused frame kernel) or ``"torch"`` (eager
+    integrator); ``device`` is where the scalars and rays are made and must
+    hold the scene.
+    """
+    device = torch.device(device)
+    offsets = sample_offsets(cfg.spp)
+    if backend == "cuda":
+        def render(scene: TorchScene, frame: CameraFrame) -> torch.Tensor:
+            return fused_radiance(
+                scene, build_scalars(frame, cfg, offsets, device), cfg)
+        return render
+    if backend != "torch":
+        raise ValueError(f"unknown backend: {backend!r} (use 'cuda' or 'torch')")
+    be = get_backend("torch")
+
+    def render_eager(scene: TorchScene, frame: CameraFrame) -> torch.Tensor:
+        return render_image(scene, frame, cfg, offsets, device, be.intersect,
+                            be.env_contribution)
+
+    return render_eager
+
+
+def render_frame(scene: TorchScene, cfg: RenderConfig, angle: float = 0.01,
+                 frame: CameraFrame | None = None, backend: str = "cuda",
+                 ) -> torch.Tensor:
+    """One-shot render on the scene's device."""
+    if frame is None:
+        frame = orbit_camera(angle, cfg)
+    return make_renderer(cfg, backend, scene.device)(scene, frame)
+
+
+def rays_per_frame(cfg: RenderConfig) -> int:
+    """Upper bound on traced rays per frame: the sum of the wavefront's
+    slot widths (dense slots, not live rays)."""
+    n = cfg.width * cfg.height * cfg.spp
+    total = 0
+    w = 1
+    for count in range(cfg.max_refract_depth + 1):
+        total += w
+        if count < cfg.max_reflect_depth:
+            w *= 2
+    return n * total

@@ -1,0 +1,152 @@
+"""CUDA kernels of refraction_tpu_torch vs their plain versions on the card,
+and the frame kernel vs the NumPy oracle.
+
+Tolerances: the kernels are built with -fmad=false, so traversal winners
+and shading round like the plain float32 versions; images may still differ
+in a few pixels where float noise flips a texel or a total-internal-
+reflection test, so image bars are RMSE and a share of pixels.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from oracle.numpy_tracer import render_oracle
+from refraction_tpu_torch import RenderConfig
+from refraction_tpu_torch.camera import orbit_camera
+from refraction_tpu_torch.fixtures import (
+    make_cube, make_gradient_envmap, make_icosphere)
+from refraction_tpu_torch.integrator import render_pixels
+from refraction_tpu_torch.camera import generate_rays
+from refraction_tpu_torch.kernels.envmap import (
+    env_contribution, env_contribution_plain)
+from refraction_tpu_torch.kernels.framekernel import (
+    build_scalars, fused_radiance, fused_radiance_plain)
+from refraction_tpu_torch.kernels.intersect import (
+    closest_hit, closest_hit_plain)
+from refraction_tpu_torch.ops.backends import get_backend
+from refraction_tpu_torch.render import sample_offsets
+from refraction_tpu_torch.scene import build_scene, scene_from_jax
+
+pytestmark = pytest.mark.cuda
+
+AGREE = 0.9999               # share of rays with equal winner / texel
+IMG_RMSE, PIX_TOL, PIX_SHARE = 1e-4, 1e-3, 1e-3
+
+
+def _scenes():
+    return {"cube": build_scene(make_cube(2.0), make_gradient_envmap(), 8)[0],
+            "sphere": build_scene(make_icosphere(3, 1.2),
+                                  make_gradient_envmap(), 128)[0]}
+
+
+def _rays(n, seed, dev):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    cull = rng.choice(np.float32([-1.0, 0.0, 1.0]), n).astype(np.float32)
+    return (torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+            torch.from_numpy(cull).to(dev))
+
+
+def _img_ok(a, b):
+    d = (a - b).abs()
+    rmse = float(torch.sqrt(torch.mean(d.double() ** 2)))
+    share = float((d.amax(dim=-1) > PIX_TOL).double().mean())
+    return rmse < IMG_RMSE and share <= PIX_SHARE, (rmse, share)
+
+
+@pytest.mark.parametrize("name", ["cube", "sphere"])
+def test_closest_hit_kernel_matches_plain(cuda, name):
+    scene = scene_from_jax(_scenes()[name], cuda)
+    o, d, cull = _rays(20000, 1, cuda)
+    before = closest_hit.launches
+    t_k, i_k, n_k = closest_hit(scene, o, d, cull, 1e-4, 100.0)
+    assert closest_hit.launches == before + 1
+    t_p, i_p, n_p = closest_hit_plain(scene, o, d, cull, 1e-4, 100.0)
+    torch.cuda.synchronize()
+    assert float((i_k == i_p).double().mean()) >= AGREE
+    assert not bool((i_k[cull == 0] >= 0).any())
+    both = (i_k == i_p) & (i_p >= 0)
+    assert int(both.sum()) > 500
+    torch.testing.assert_close(t_k[both], t_p[both], rtol=1e-6, atol=0)
+    torch.testing.assert_close(n_k[both], n_p[both], rtol=1e-6, atol=1e-7)
+
+
+def test_env_kernel_matches_plain(cuda):
+    scene = scene_from_jax(
+        build_scene(make_cube(2.0), make_gradient_envmap(512, 1024), 8)[0],
+        cuda)
+    _, d, _ = _rays(50000, 2, cuda)
+    w = torch.rand(50000, generator=torch.Generator().manual_seed(3)).to(cuda)
+    w[::3] = 0.0
+    before = env_contribution.launches
+    got = env_contribution(scene, d, w)
+    assert env_contribution.launches == before + 1
+    ref = env_contribution_plain(scene, d, w)
+    assert float((got == ref).all(dim=1).double().mean()) >= AGREE
+    assert bool((got[w == 0] == 0).all())
+
+
+@pytest.mark.parametrize("spp", [1, 4])
+@pytest.mark.parametrize("name", ["cube", "sphere"])
+def test_frame_kernel_matches_plain(cuda, name, spp):
+    scene = scene_from_jax(_scenes()[name], cuda)
+    cfg = RenderConfig(width=96, height=70, spp=spp)
+    scal = build_scalars(orbit_camera(0.4, cfg), cfg, sample_offsets(spp), cuda)
+    before = fused_radiance.launches
+    img_k = fused_radiance(scene, scal, cfg)
+    assert fused_radiance.launches == before + 1
+    assert img_k.shape == (70, 96, 3)
+    ok, why = _img_ok(img_k, fused_radiance_plain(scene, scal, cfg))
+    assert ok, why
+
+
+def test_frame_kernel_at_large_scene(cuda):
+    """81,920 triangles: the size the TPU path had to stream."""
+    mesh = make_icosphere(6, 1.2)
+    scene = scene_from_jax(build_scene(mesh, make_gradient_envmap(), 512)[0],
+                           cuda)
+    cfg = RenderConfig(width=48, height=32, max_refract_depth=4)
+    scal = build_scalars(orbit_camera(0.2, cfg), cfg, sample_offsets(1), cuda)
+    ok, why = _img_ok(fused_radiance(scene, scal, cfg),
+                      fused_radiance_plain(scene, scal, cfg))
+    assert ok, why
+
+
+def test_frame_kernel_matches_oracle(cuda):
+    sc = _scenes()["sphere"]
+    cfg = RenderConfig(width=64, height=48)
+    frame = orbit_camera(0.85, cfg)
+    img = fused_radiance(scene_from_jax(sc, cuda),
+                         build_scalars(frame, cfg, sample_offsets(1), cuda), cfg)
+    ref = torch.from_numpy(render_oracle(sc, cfg, frame=frame)).to(cuda)
+    ok, why = _img_ok(img, ref)
+    assert ok, why
+
+
+def test_cuda_backend_integrator_matches_torch_backend(cuda):
+    scene = scene_from_jax(_scenes()["sphere"], cuda)
+    cfg = RenderConfig(width=64, height=48)
+    o, d = generate_rays(orbit_camera(0.85, cfg), 64, 48, cuda)
+    out = {}
+    for name in ("cuda", "torch"):
+        be = get_backend(name)
+        out[name] = render_pixels(scene, o, d, cfg, be.intersect,
+                                  be.env_contribution)
+    ok, why = _img_ok(out["cuda"].reshape(48, 64, 3),
+                      out["torch"].reshape(48, 64, 3))
+    assert ok, why
+
+
+def test_wrappers_reject_mixed_devices(cuda):
+    scene = scene_from_jax(_scenes()["cube"], "cpu")
+    o, d, cull = _rays(16, 4, cuda)
+    with pytest.raises(ValueError, match="scene"):
+        closest_hit(scene, o, d, cull, 1e-4, 100.0)
+    cfg = RenderConfig(width=8, height=8, max_reflect_depth=8,
+                       max_refract_depth=9)
+    scal = build_scalars(orbit_camera(0.1, cfg), cfg, sample_offsets(1), cuda)
+    with pytest.raises(ValueError, match="stack"):
+        fused_radiance(scene_from_jax(_scenes()["cube"], cuda), scal, cfg)

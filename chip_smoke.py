@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """GPU smoke test of refraction_tpu_torch: builds the CUDA kernels, holds
 each against its plain PyTorch version on the card, then drives the main
-path (``python -m refraction_tpu_torch.run``) on procedural scenes at the
-reference demo's scale and at the large-scene scale.
+paths on procedural scenes at the reference demo's scale and at the
+large-scene scale: the frame path (``python -m refraction_tpu_torch.run``)
+and the per-round wavefront (``integrator.render_pixels_mega``,
+``render.count_live_rays``, ``python -m refraction_tpu_torch.profile_rounds``).
 
     python3 chip_smoke.py        # needs one CUDA GPU and nvcc
 
@@ -16,12 +18,23 @@ Phases (any failure raises; nothing is caught):
   5. the CLI on the demo configuration (1024x768, 5/2 bounces, 8 orbit
      frames, 1,280 triangles) and on the large scene (1920x1080, 4
      bounces, 4 frames, 81,920 triangles); the frame kernel must be
-     launched exactly once per frame.
+     launched exactly once per frame;
+  6. round kernel vs its plain version per variant on 2^16 lanes (with
+     subnormal weights); the wavefront path at the demo configuration and
+     at the large scene, with every launch count set to 0 just before each
+     and read just after: the round kernel must be launched once per
+     bounce round (6 and 5 times); each image is held against the frame
+     kernel's and the eager integrator's (the plain wavefront; the whole
+     demo frame, every 64th pixel of the large one), and rays_traced
+     against the eager count; count_live_rays must equal rays_traced; then
+     profile_rounds on both, and the live rays per frame and live Mrays/s
+     (live rays / frame-kernel ms).
 
 The line before the last is a JSON object with each kernel's launches in
-phase 5, its error against the plain version and both times; the last
-line is ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero
-and prints no result.
+its main-path phase (5 for the frame kernel, 6 for the round kernel), its
+error against the plain version and both times; the last line is
+``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -42,6 +55,8 @@ ENV_AGREE = 0.9999      # share of directions with an equal texel
 IMG_RMSE = 1e-4         # frame RMSE against the plain version
 PIX_TOL = 1e-3          # a pixel "differs" if any channel is off by more
 PIX_SHARE = 1e-4        # ... and at most this share of pixels may differ
+CHILD_ATOL = 1e-5       # round children where liveness agrees
+LARGE_STRIDE = 64       # plain version on every 64th pixel of the large frame
 
 
 def log(msg: str) -> None:
@@ -76,8 +91,7 @@ def check_image(tag: str, diff: dict) -> None:
     log(f"  {tag}: rmse {diff['rmse']:.3e} max_abs {diff['max_abs_err']:.3e} "
         f"share>{PIX_TOL:g} {diff['share_over']:.2e}")
     if not (diff["rmse"] < IMG_RMSE and diff["share_over"] <= PIX_SHARE):
-        raise AssertionError(f"{tag}: frame kernel disagrees with the plain "
-                             f"version: {diff}")
+        raise AssertionError(f"{tag}: images disagree: {diff}")
 
 
 def main() -> int:
@@ -110,7 +124,13 @@ def main() -> int:
         build_scalars, fused_radiance, fused_radiance_plain)
     from refraction_tpu_torch.kernels.intersect import (
         closest_hit, closest_hit_plain)
-    from refraction_tpu_torch.render import sample_offsets
+    from refraction_tpu_torch.kernels.megakernel import (
+        mega_round, mega_round_plain)
+    from refraction_tpu_torch.camera import generate_rays
+    from refraction_tpu_torch.integrator import render_pixels, render_pixels_mega
+    from refraction_tpu_torch.ops.backends import get_backend
+    from refraction_tpu_torch.render import count_live_rays, sample_offsets
+    from refraction_tpu_torch import profile_rounds
     from refraction_tpu_torch.scene import (
         auto_cluster_size, build_scene, load_scene, scene_from_jax)
     from refraction_tpu_torch import run as cli
@@ -292,6 +312,7 @@ def main() -> int:
     torch.cuda.synchronize()
     diff = image_diff(np, img_k, img_p)
     check_image("demo 1024x768 kernel vs plain", diff)
+    frame_err = diff["max_abs_err"]
     frame_ms = cuda_ms(torch, lambda: fused_radiance(demo, scal, cfg), 10)
     plain_ms = cuda_ms(torch, lambda: fused_radiance_plain(demo, scal, cfg), 1)
     log(f"  demo 1024x768 5/2 bounces: frame kernel {frame_ms:.3f} ms, "
@@ -304,15 +325,137 @@ def main() -> int:
                            dev)
     large_ms = cuda_ms(torch, lambda: fused_radiance(large, scal_l, cfg_l), 10)
     log(f"  large 1920x1080 4 bounces: frame kernel {large_ms:.3f} ms [{card}]")
-    shutil.rmtree(tmp, ignore_errors=True)
-
     if launches["frame"] != sum(r[-1] for r in runs):
         raise AssertionError(f"frame kernel launches {launches['frame']}")
+
+    # --- phase 6: per-round wavefront -----------------------------------
+    log("phase 6: round kernel vs plain; wavefront path (render_pixels_mega)")
+    counters = (fused_radiance, closest_hit, env_contribution, mega_round)
+    n = 2 ** 16
+    lanes = np.stack([*rng.uniform(-3, 3, (3, n)), *d_np.T,
+                      rng.choice([1.0, -1.0, 0.0], n), rng.random(n)])
+    lanes[7, ::8] = 1.4e-45  # subnormal: w * R underflows to 0
+    state = torch.from_numpy(lanes.astype(np.float32)).to(dev)
+    subnormal = state[7] < 1e-40
+    limits = (1e-3, 1000.0, 1.3, RenderConfig().fresnel_r0)
+    variant_err = 0.0
+    for vname, want_reflect, want_children in (
+            ("full", True, True), ("norefl", False, True),
+            ("missonly", False, False)):
+        got = mega_round(sphere, state, limits, want_reflect, want_children)
+        ref = mega_round_plain(sphere, state, limits, want_reflect,
+                               want_children)
+        torch.cuda.synchronize()
+        rad_d = (got.radiance - ref.radiance).abs()
+        rad_off = float((rad_d.amax(dim=1) > PIX_TOL).double().mean())
+        msg = f"  {vname}: radiance share>{PIX_TOL:g} {rad_off:.2e}"
+        ok = rad_off <= 1 - HIT_AGREE
+        err = float(rad_d.max())
+        if want_children:
+            alive_k = got.children[6] != 0
+            alive_p = ref.children[6] != 0
+            agree = float((alive_k == alive_p).double().mean())
+            same = alive_k == alive_p
+            kid_err = float((got.children - ref.children)[:, same].abs().max())
+            err = max(err, kid_err)
+            msg += (f", child liveness agree {agree:.6f} of "
+                    f"{int(alive_p.sum())} live, child max abs err {kid_err:.2e}")
+            ok = ok and agree >= HIT_AGREE and kid_err <= CHILD_ATOL
+            if want_reflect:
+                hit = alive_p[n:]
+                under = hit & subnormal
+                ok = ok and bool((got.children[6, n:][hit] == state[6][hit]).all())
+                ok = ok and bool((got.children[7, n:][under] == 0).all())
+                msg += f", {int(under.sum())} live reflections of weight 0"
+        variant_err = max(variant_err, err)
+        log(msg)
+        if not ok:
+            raise AssertionError(f"round kernel {vname} disagrees with plain")
+
+    round_launches = 0
+    wave = {}
+    eager = get_backend("torch")  # the eager integrator: the plain wavefront
+    for tag, sc, c in (("demo", demo, cfg), ("large", large, cfg_l)):
+        frame = orbit_camera(0.01, c)
+        npx = c.width * c.height
+        o, d = generate_rays(frame, c.width, c.height, dev)
+        for k in counters:
+            k.launches = 0
+        img, st = render_pixels_mega(sc, o, d, c, collect_stats=True)
+        torch.cuda.synchronize()
+        got = {k.__name__: k.launches for k in counters}
+        rounds = c.max_refract_depth + 1
+        if got != {"fused_radiance": 0, "closest_hit": 0,
+                   "env_contribution": 0, "mega_round": rounds}:
+            raise AssertionError(f"{tag}: launches {got}, want {rounds} "
+                                 "round-kernel launches and no other")
+        round_launches += got["mega_round"]
+        rays = int(st["rays_traced"])
+        if (tuple(img.shape) != (npx, 3) or not bool(torch.isfinite(img).all())
+                or float(img.std()) == 0.0):
+            raise AssertionError(f"{tag}: bad wavefront image")
+        img = img.reshape(c.height, c.width, 3)
+        scal = build_scalars(frame, c, sample_offsets(1), dev)
+        check_image(f"{tag} wavefront vs frame kernel",
+                    image_diff(np, img, fused_radiance(sc, scal, c)))
+        stride = 1 if tag == "demo" else LARGE_STRIDE
+        idx = torch.arange(0, npx, stride, device=dev)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        img_p, st_p = render_pixels(sc, o[idx], d[idx], c, eager.intersect,
+                                    eager.env_contribution, collect_stats=True)
+        e1.record()
+        torch.cuda.synchronize()
+        wave_plain_ms = e0.elapsed_time(e1)
+        diff = image_diff(np, img.reshape(-1, 3)[idx], img_p)
+        check_image(f"{tag} wavefront vs eager (every {stride}th pixel)", diff)
+        rays_sub = rays if stride == 1 else int(render_pixels_mega(
+            sc, o[idx], d[idx], c, collect_stats=True)[1]["rays_traced"])
+        if rays_sub != int(st_p["rays_traced"]):
+            raise AssertionError(f"{tag}: rays_traced {rays_sub} vs eager "
+                                 f"{int(st_p['rays_traced'])}")
+        live = count_live_rays(sc, c, frame, dev)
+        if live != rays:
+            raise AssertionError(f"{tag}: count_live_rays {live} vs {rays}")
+        wave_ms = cuda_ms(torch, lambda: render_pixels_mega(sc, o, d, c), 5)
+        frame_k_ms = cuda_ms(torch, lambda: fused_radiance(sc, scal, c), 10)
+        wave[tag] = {"rays_traced": rays, "slot_rounds": st["slot_rounds"],
+                     "wavefront_ms": wave_ms, "frame_kernel_ms": frame_k_ms,
+                     "plain_ms": wave_plain_ms,
+                     "plain_pixels": int(idx.numel()),
+                     "max_abs_err": diff["max_abs_err"],
+                     "mrays_live": rays / frame_k_ms / 1e3}
+        log(f"  {tag}: rays_traced {rays} (eager {int(st_p['rays_traced'])} "
+            f"on {idx.numel()} pixels), slot_rounds {st['slot_rounds']}; "
+            f"wavefront {wave_ms:.3f} ms, frame kernel {frame_k_ms:.3f} ms, "
+            f"eager {wave_plain_ms:.1f} ms on {idx.numel()} pixels [{card}]")
+        log(f"  {tag}: live rays per frame {live} [{card}]")
+        log(f"  {tag}: live Mrays/s {rays / frame_k_ms / 1e3:.1f} (live rays / "
+            f"frame-kernel ms) [{card}]")
+    log(f"  round-kernel launches on the wavefront path: {round_launches}")
+    for tag, (_, _, wd, ht, bounces, _) in zip(("demo", "large"), runs):
+        rc = profile_rounds.main([
+            "--scene", paths[tag][0], "--envmap", paths[tag][1],
+            "--width", str(wd), "--height", str(ht), "--bounces", str(bounces),
+            "--device", "cuda"])
+        if rc != 0:
+            raise AssertionError(f"profile_rounds {tag}: rc {rc}")
+    shutil.rmtree(tmp, ignore_errors=True)
     kern = [{"name": "frame", "route": "cuda",
              "source": "refraction_tpu_torch/csrc/frame.cu",
              "replaces": "refraction_tpu/kernels/framekernel.py:106",
-             "launches": launches["frame"], "max_abs_err": diff["max_abs_err"],
-             "ms": frame_ms, "plain_ms": plain_ms}]
+             "launches": launches["frame"], "max_abs_err": frame_err,
+             "ms": frame_ms, "plain_ms": plain_ms},
+            {"name": "round", "route": "cuda",
+             "source": "refraction_tpu_torch/csrc/round.cu",
+             "replaces": "refraction_tpu/kernels/megakernel.py:43",
+             "launches": round_launches,
+             "max_abs_err": max(wave["demo"]["max_abs_err"], variant_err),
+             "ms": wave["demo"]["wavefront_ms"],
+             "plain_ms": wave["demo"]["plain_ms"],
+             "timed": "render_pixels_mega (6 launches) vs the eager "
+                      "integrator, demo 1024x768 5/2"}]
     off_path = [
         {"name": "closest_hit", "route": "cuda",
          "source": "refraction_tpu_torch/csrc/closest_hit.cu",
@@ -327,7 +470,8 @@ def main() -> int:
          "ms": results["env"][0], "plain_ms": results["env"][1]}]
     print(json.dumps({"kernels": kern, "off_path_kernels": off_path,
                       "frame_stream_ms": per_frame,
-                      "frame_ms_large": large_ms, "card": card}))
+                      "frame_ms_large": large_ms, "wavefront": wave,
+                      "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,7 +21,8 @@
 // pending sibling, so the stack never holds more than
 // min(max_reflect, max_refract) + 1 rays; the wrapper checks that against
 // RT_MAX_STACK. The result is written straight into the (H, W, 3) image,
-// times 1/spp: no tile order and no padding, which were TPU layout.
+// times 1/spp: no tile order and no padding, which were TPU layout. The
+// shading is shade.cuh's, shared with the round kernel (round.cu).
 //
 // Bound on the H100: traversal latency and warp divergence (neighbouring
 // pixels' trees differ in depth and visit different boxes), not FLOPs or
@@ -40,6 +41,7 @@
 #include <cuda_runtime.h>
 
 #include "envmap.cuh"
+#include "shade.cuh"
 #include "traverse.cuh"
 
 #define RT_MAX_STACK 8
@@ -103,37 +105,19 @@ __global__ void __launch_bounds__(128) rt_frame_kernel(
 
       // ClosestHit (RayTracing.hlsl:79-123), as integrator._shade_hits.
       const bool outside = r.cull > 0.0f;
-      const float nlen = sqrtf(h.nx * h.nx + h.ny * h.ny + h.nz * h.nz);
-      float nx = h.nx / nlen, ny = h.ny / nlen, nz = h.nz / nlen;
-      if (!outside) { nx = -nx; ny = -ny; nz = -nz; }
-      const float hx = r.ox + h.t * r.dx;
-      const float hy = r.oy + h.t * r.dy;
-      const float hz = r.oz + h.t * r.dz;
-      const float cosi = r.dx * nx + r.dy * ny + r.dz * nz;
-      const float base = 1.0f - cosi;
-      const float fres = fres_scale * (base * base) * (base * base) * base;
+      const RtSurface sf =
+          rt_surface(h, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, outside);
+      const float fres = rt_fresnel(sf, fres_scale);
 
       if (r.count < max_reflect) {  // reflection child, every hit
-        float fx = r.dx - 2.0f * cosi * nx;
-        float fy = r.dy - 2.0f * cosi * ny;
-        float fz = r.dz - 2.0f * cosi * nz;
-        const float flen = sqrtf(fx * fx + fy * fy + fz * fz);
-        fx /= flen; fy /= flen; fz /= flen;
-        stack[sp++] = RtRay{hx, hy, hz, fx, fy, fz, r.w * fres, r.cull,
-                            r.count + 1};
+        const float3 f = rt_reflect(sf, r.dx, r.dy, r.dz);
+        stack[sp++] = RtRay{sf.hx, sf.hy, sf.hz, f.x, f.y, f.z, r.w * fres,
+                            r.cull, r.count + 1};
       }
-      const float eta = outside ? eta_out : ior;
-      const float k = 1.0f - eta * eta * (1.0f - cosi * cosi);
-      if (k >= 0.0f) {  // refraction child; none on TIR
-        const float coef = eta * cosi + sqrtf(k);
-        float tx = eta * r.dx - coef * nx;
-        float ty = eta * r.dy - coef * ny;
-        float tz = eta * r.dz - coef * nz;
-        float tlen = sqrtf(tx * tx + ty * ty + tz * tz);
-        if (!(tlen > 0.0f)) tlen = 1.0f;
-        tx /= tlen; ty /= tlen; tz /= tlen;
-        stack[sp++] = RtRay{hx, hy, hz, tx, ty, tz, r.w * (1.0f - fres),
-                            -r.cull, r.count + 1};
+      float3 tr;  // refraction child; none on TIR
+      if (rt_refract(sf, r.dx, r.dy, r.dz, outside ? eta_out : ior, &tr)) {
+        stack[sp++] = RtRay{sf.hx, sf.hy, sf.hz, tr.x, tr.y, tr.z,
+                            r.w * (1.0f - fres), -r.cull, r.count + 1};
       }
     }
   }

@@ -10,6 +10,12 @@ black. Slot ``i`` always belongs to pixel ``i % N``.
 
 This is the plain version of the CUDA frame kernel
 (kernels/framekernel.py), which runs the same tree depth-first per pixel.
+
+`render_pixels_mega` is the per-round wavefront (port of
+`refraction_tpu.integrator.render_pixels_mega`): the same tree, one
+round-kernel launch per bounce round (kernels/megakernel.py) over an
+(8, W) lane state, with the children written by the kernel in the
+layout above.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 
 from refraction_tpu.config import RenderConfig
 from refraction_tpu_torch.camera import CameraFrame, generate_rays
+from refraction_tpu_torch.kernels.megakernel import STATE_ROWS, mega_round
 from refraction_tpu_torch.ops.intersect import interpolate_normal, recompute_uv
 from refraction_tpu_torch.ops.shade import (
     dot3,
@@ -142,3 +149,76 @@ def render_image(scene, frame: CameraFrame, cfg: RenderConfig,
         acc = rad if acc is None else acc + rad
     inv_spp = float(np.float32(1.0 / len(offsets)))
     return (acc * inv_spp).reshape(cfg.height, cfg.width, 3)
+
+
+def initial_state(origins: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """(8, N) float32 lane state of N primary rays: outside, weight 1."""
+    state = torch.empty(STATE_ROWS, origins.shape[0], dtype=torch.float32,
+                        device=origins.device)
+    state[0:3] = origins.t()
+    state[3:6] = dirs.t()
+    state[6:8] = 1.0
+    return state
+
+
+def round_params(cfg: RenderConfig, count: int):
+    """(limits, want_reflect, want_children) of bounce round ``count``:
+    primary or secondary ray interval, and which children it emits."""
+    primary = count == 0
+    limits = (cfg.primary_tmin if primary else cfg.secondary_tmin,
+              cfg.primary_tmax if primary else cfg.secondary_tmax,
+              cfg.ior, cfg.fresnel_r0)
+    want_children = count < cfg.max_refract_depth
+    want_reflect = want_children and count < cfg.max_reflect_depth
+    return limits, want_reflect, want_children
+
+
+def wavefront_rounds(scene, origins: torch.Tensor, dirs: torch.Tensor,
+                     cfg: RenderConfig):
+    """The bounce-round schedule of `render_pixels_mega`: yields, per round,
+    ``(state, run)``, the round's (8, W) input state and a no-argument call
+    of `mega_round` on it that returns its `RoundOut`.
+
+    The consumer calls ``run`` at least once before it asks for the next
+    round; the next state is the children of the last call's result."""
+    state = initial_state(origins, dirs)
+    for count in range(cfg.max_refract_depth + 1):
+        limits, want_reflect, want_children = round_params(cfg, count)
+        last = []
+
+        def run():
+            last[:] = [mega_round(scene, state, limits, want_reflect,
+                                  want_children)]
+            return last[0]
+
+        yield state, run
+        if not want_children:
+            return  # hits at the cap contribute black (RayTracing.hlsl:82)
+        state = last[0].children
+
+
+def render_pixels_mega(scene, origins: torch.Tensor, dirs: torch.Tensor,
+                       cfg: RenderConfig, collect_stats: bool = False):
+    """Trace N primary rays to completion, one `mega_round` call per bounce
+    round (`wavefront_rounds`); returns (N, 3) linear radiance.
+
+    On CUDA tensors each round is one round-kernel launch; on CPU tensors
+    `mega_round` takes its plain version. N may be any positive count:
+    there is no tile padding. With ``collect_stats`` returns (radiance,
+    {'rays_traced': int64 scalar tensor, 'slot_rounds': int}): the live
+    lanes (cull != 0) entering each round, summed on the device, and the
+    lanes of every round.
+    """
+    n = origins.shape[0]
+    radiance = torch.zeros(n, 3, dtype=torch.float32, device=origins.device)
+    rays_traced = torch.zeros((), dtype=torch.int64, device=origins.device)
+    slot_rounds = 0
+    for state, run in wavefront_rounds(scene, origins, dirs, cfg):
+        if collect_stats:
+            rays_traced = rays_traced + (state[6] != 0).sum()
+            slot_rounds += int(state.shape[1])
+        radiance = radiance + run().radiance.reshape(-1, n, 3).sum(dim=0)
+    if collect_stats:
+        return radiance, {"rays_traced": rays_traced,
+                          "slot_rounds": slot_rounds}
+    return radiance

@@ -47,6 +47,11 @@ SIGNATURES = {
     # sub_tris, env_h, env_w, stream
     "rt_frame": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
                  _I, _I, _I, _I, _I, _P],
+    # tmin, tmax, ior, r0, tri, norm, clusters, subs, env, state, w, rad,
+    # next, variant, n_clusters, cluster_size, sub_tris, env_h, env_w,
+    # stream
+    "rt_round": [_F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I,
+                 _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,0 +1,105 @@
+"""Per-round profile of the wavefront path: port of ``tools/profile_rounds.py``.
+
+For one frame of `integrator.render_pixels_mega` (spp 1, orbit angle
+0.01) it prints one line per bounce round: the lane width, the live
+lanes (cull != 0) entering the round, and the minimum of 5 timings of
+the round's `mega_round` call after one warm-up call. On ``--device cuda``
+the timings are CUDA events around the kernel launch; on ``--device cpu``
+they are wall-clock time over the plain version. The last line sums the
+rounds; the live lanes sum to the frame's ``rays_traced``.
+
+    python -m refraction_tpu_torch.profile_rounds --scene my.obj \\
+        --envmap env.hdr --width 1920 --height 1080 --bounces 4
+    python -m refraction_tpu_torch.profile_rounds --scene my.obj \\
+        --envmap env.hdr --width 32 --height 16 --device cpu
+
+``--device cuda`` without CUDA is an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from refraction_tpu.config import RenderConfig
+from refraction_tpu_torch.camera import CameraFrame, generate_rays, orbit_camera
+from refraction_tpu_torch.integrator import wavefront_rounds
+from refraction_tpu_torch.run import build_config
+from refraction_tpu_torch.scene import load_scene, scene_from_jax
+
+REPS = 5
+
+
+def _time_ms(fn, device: torch.device) -> float:
+    """ms of one call of ``fn``: CUDA events on a CUDA device, the host
+    clock otherwise."""
+    if device.type == "cuda":
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        fn()
+        ev1.record()
+        torch.cuda.synchronize(device)
+        return ev0.elapsed_time(ev1)
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def profile_rounds(scene, cfg: RenderConfig, frame: CameraFrame,
+                   device: torch.device) -> list[dict]:
+    """One dict per bounce round of `wavefront_rounds`: ``round``,
+    ``lanes``, ``live`` and ``ms`` (the minimum of REPS timed calls after
+    one warm-up)."""
+    o, d = generate_rays(frame, cfg.width, cfg.height, device)
+    rows = []
+    for count, (state, run) in enumerate(wavefront_rounds(scene, o, d, cfg)):
+        live = int((state[6] != 0).sum())
+        _time_ms(run, device)  # warm-up
+        ms = min(_time_ms(run, device) for _ in range(REPS))
+        rows.append({"round": count, "lanes": int(state.shape[1]),
+                     "live": live, "ms": ms})
+    return rows
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--scene", help="OBJ path (or name under the asset dir)")
+    p.add_argument("--envmap", help="HDR/PNG environment map path")
+    p.add_argument("--width", type=int)
+    p.add_argument("--height", type=int)
+    p.add_argument("--bounces", type=int, help="max refraction depth (ref: 5)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to profile on (default: cuda)")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: CUDA is not available")
+    cfg = build_config(args)
+    scene_np, meta = load_scene(cfg)
+    scene = scene_from_jax(scene_np, device)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu, plain version, wall clock")
+    print(f"profile_rounds: {cfg.width}x{cfg.height} bounces "
+          f"{cfg.max_refract_depth}/{cfg.max_reflect_depth}, "
+          f"{meta.num_real_tris} tris, device {device} ({name})", flush=True)
+    rows = profile_rounds(scene, cfg, orbit_camera(0.01, cfg), device)
+    for r in rows:
+        print(f"round {r['round']}: lanes {r['lanes']} live {r['live']} "
+              f"ms {r['ms']!r}", flush=True)
+    print(f"total: lanes {sum(r['lanes'] for r in rows)} live "
+          f"{sum(r['live'] for r in rows)} ms {sum(r['ms'] for r in rows)!r}",
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -22,8 +22,8 @@ import numpy as np
 import torch
 
 from refraction_tpu.config import RenderConfig
-from refraction_tpu_torch.camera import CameraFrame, orbit_camera
-from refraction_tpu_torch.integrator import render_image
+from refraction_tpu_torch.camera import CameraFrame, generate_rays, orbit_camera
+from refraction_tpu_torch.integrator import render_image, render_pixels_mega
 from refraction_tpu_torch.kernels.framekernel import build_scalars, fused_radiance
 from refraction_tpu_torch.ops.backends import get_backend
 from refraction_tpu_torch.scene import TorchScene
@@ -94,3 +94,21 @@ def rays_per_frame(cfg: RenderConfig) -> int:
         if count < cfg.max_reflect_depth:
             w *= 2
     return n * total
+
+
+def count_live_rays(scene: TorchScene, cfg: RenderConfig, frame: CameraFrame,
+                    device: torch.device | str) -> int:
+    """Live rays traced for one frame: the lanes alive entering each bounce
+    round of `render_pixels_mega`, for every sample's own jittered
+    primaries (`sample_offsets`), over the real pixels only.
+
+    Port of ``bench.py::count_live_rays``, which pads the image to whole
+    32x32 tiles with edge-duplicated rays (and counts them) and multiplies
+    the spp=1 count by spp; this count does neither. One host sync, at the
+    end."""
+    total = torch.zeros((), dtype=torch.int64, device=device)
+    for off in sample_offsets(cfg.spp):
+        o, d = generate_rays(frame, cfg.width, cfg.height, device, jitter=off)
+        _, stats = render_pixels_mega(scene, o, d, cfg, collect_stats=True)
+        total = total + stats["rays_traced"]
+    return int(total)

@@ -51,7 +51,7 @@ def build_config(args) -> RenderConfig:
     for key, field in (("width", "width"), ("height", "height"),
                        ("bounces", "max_refract_depth"), ("spp", "spp"),
                        ("ior", "ior"), ("aspect", "aspect")):
-        if getattr(args, key) is not None:
+        if getattr(args, key, None) is not None:
             overrides[field] = getattr(args, key)
     return RenderConfig().replace(**overrides)
 

@@ -16,7 +16,8 @@ from refraction_tpu_torch import RenderConfig
 from refraction_tpu_torch.camera import orbit_camera
 from refraction_tpu_torch.fixtures import (
     make_cube, make_gradient_envmap, make_icosphere)
-from refraction_tpu_torch.integrator import render_pixels
+from refraction_tpu_torch.integrator import (
+    initial_state, render_pixels, render_pixels_mega)
 from refraction_tpu_torch.camera import generate_rays
 from refraction_tpu_torch.kernels.envmap import (
     env_contribution, env_contribution_plain)
@@ -24,6 +25,8 @@ from refraction_tpu_torch.kernels.framekernel import (
     build_scalars, fused_radiance, fused_radiance_plain)
 from refraction_tpu_torch.kernels.intersect import (
     closest_hit, closest_hit_plain)
+from refraction_tpu_torch.kernels.megakernel import (
+    mega_round, mega_round_plain)
 from refraction_tpu_torch.ops.backends import get_backend
 from refraction_tpu_torch.render import sample_offsets
 from refraction_tpu_torch.scene import build_scene, scene_from_jax
@@ -150,3 +153,63 @@ def test_wrappers_reject_mixed_devices(cuda):
     scal = build_scalars(orbit_camera(0.1, cfg), cfg, sample_offsets(1), cuda)
     with pytest.raises(ValueError, match="stack"):
         fused_radiance(scene_from_jax(_scenes()["cube"], cuda), scal, cfg)
+
+
+@pytest.mark.parametrize("variant", ["full", "norefl", "missonly"])
+@pytest.mark.parametrize("name", ["cube", "sphere"])
+def test_round_kernel_matches_plain(cuda, name, variant):
+    want_reflect, want_children = {"full": (True, True),
+                                   "norefl": (False, True),
+                                   "missonly": (False, False)}[variant]
+    scene = scene_from_jax(_scenes()[name], cuda)
+    n = 20000
+    o, d, cull = _rays(n, 5, cuda)
+    state = initial_state(o, d)
+    state[6] = cull
+    w = torch.rand(n, generator=torch.Generator().manual_seed(6)).to(cuda)
+    w[::7] = 1.4e-45  # subnormal: the reflection weight underflows to 0
+    state[7] = w
+    limits = (1e-3, 1000.0, 1.3, 0.00826446)
+    before = mega_round.launches
+    got = mega_round(scene, state, limits, want_reflect, want_children)
+    assert mega_round.launches == before + 1
+    ref = mega_round_plain(scene, state, limits, want_reflect, want_children)
+    torch.cuda.synchronize()
+    rad_off = (got.radiance - ref.radiance).abs().amax(dim=1) > PIX_TOL
+    assert float(rad_off.double().mean()) <= 1 - AGREE
+    assert not bool(got.radiance[cull == 0].any())
+    if not want_children:
+        assert got.children is None
+        return
+    assert got.children.shape == ref.children.shape
+    alive_k, alive_p = got.children[6] != 0, ref.children[6] != 0
+    assert float((alive_k == alive_p).double().mean()) >= AGREE
+    if want_reflect:  # alive on every hit, whatever the weight
+        hit = alive_p[n:]
+        assert bool((got.children[6, n:][hit] == state[6][hit]).all())
+        assert bool((got.children[7, n:][hit & (w < 1e-40)] == 0).all())
+    same = alive_k == alive_p
+    torch.testing.assert_close(got.children[:, same], ref.children[:, same],
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["cube", "sphere"])
+def test_wavefront_matches_frame_kernel(cuda, name):
+    scene = scene_from_jax(_scenes()[name], cuda)
+    cfg = RenderConfig(width=96, height=70)
+    frame = orbit_camera(0.4, cfg)
+    o, d = generate_rays(frame, 96, 70, cuda)
+    before = mega_round.launches
+    img, st = render_pixels_mega(scene, o, d, cfg, collect_stats=True)
+    assert mega_round.launches == before + cfg.max_refract_depth + 1
+    frame_img = fused_radiance(
+        scene, build_scalars(frame, cfg, sample_offsets(1), cuda), cfg)
+    ok, why = _img_ok(img.reshape(70, 96, 3), frame_img)
+    assert ok, why
+    be = get_backend("torch")  # the eager integrator: the plain wavefront
+    img_p, st_p = render_pixels(scene, o, d, cfg, be.intersect,
+                                be.env_contribution, collect_stats=True)
+    ok, why = _img_ok(img.reshape(70, 96, 3), img_p.reshape(70, 96, 3))
+    assert ok, why
+    assert int(st["rays_traced"]) == int(st_p["rays_traced"])
+    assert st["slot_rounds"] == st_p["slot_rounds"]

@@ -28,13 +28,33 @@ Phases (any failure raises; nothing is caught):
      demo frame, every 64th pixel of the large one), and rays_traced
      against the eager count; count_live_rays must equal rays_traced; then
      profile_rounds on both, and the live rays per frame and live Mrays/s
-     (live rays / frame-kernel ms).
+     (live rays / frame-kernel ms);
+  7. the traversal instruments: the MT and Woop sub-visit kernels equal
+     their plain versions exactly at V = 64 and 70 (which wraps the
+     64-sub table) on the tool's inputs with the tool's all-ones cull and
+     a +-1 mix, and meet the tool's MT-vs-Woop check at V = 512; the six
+     stall variants equal their plain version exactly at n_iter 64 and
+     70, on the tool's all-ones carry and on one whose elements differ;
+     then the CLIs ``mxu_mt_bench`` and ``stallbench`` at the
+     tools' default sizes (ns/visit, ns/iter), with their launches
+     counted;
+  8. the CLI flags on CUDA, each run with every count set to 0 just
+     before and read just after: ``--instances`` (three instances, one of
+     mask 0; 1024x768, 5/2 bounces, 4 frames; a 256x192 frame held
+     against the eager integrator over the closest-hit and env kernels),
+     ``--accumulate`` 4 frames then ``--resume`` 2 (equal to the mean of
+     the 6 single frames to 1e-6), ``--heatmap`` at the demo shape (one
+     round-kernel launch per bounce round; counts sum to count_live_rays
+     and equal the eager integrator's pixel_rays on every 64th pixel) and
+     ``--serve 0 --frames 3`` in a thread (one GET of /frame over
+     127.0.0.1 returns a PNG of the frame's size).
 
 The line before the last is a JSON object with each kernel's launches in
-its main-path phase (5 for the frame kernel, 6 for the round kernel), its
-error against the plain version and both times; the last line is
-``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
-prints no result.
+its main-path phase (5 for the frame kernel, 6 for the round kernel, 8
+for the closest-hit and env kernels, the CLIs of 7 for the
+instruments), its error against the plain version and both times; the
+last line is ``{"ok": true, "device": {...}}``. Without CUDA it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -48,7 +68,8 @@ import sys
 import tempfile
 import time
 
-# Tolerances (stated once, used by every phase):
+# Tolerances (stated once, used by every phase; the instrument kernels and
+# the accumulation are held exactly / to 1e-6 where they are checked):
 HIT_AGREE = 0.9999      # share of rays with equal hit mask and idx
 T_RTOL = 1e-5           # relative t error where idx agrees
 ENV_AGREE = 0.9999      # share of directions with an equal texel
@@ -94,6 +115,64 @@ def check_image(tag: str, diff: dict) -> None:
         raise AssertionError(f"{tag}: images disagree: {diff}")
 
 
+def serve_one_frame(drive, frames: int, argv) -> "np.ndarray":
+    """Run ``drive(argv)`` (a ``--serve`` CLI run of ``frames`` frames) in a
+    thread; frame 0 is published before its log line, whose handler holds
+    the render loop until this thread has fetched ``/frame`` over
+    127.0.0.1. Returns the decoded (H, W, 3) uint8 PNG."""
+    import re
+    import threading
+    import urllib.request
+
+    from refraction_tpu.io.png import decode_png_bytes
+
+    port, outcome, png = [], [], []
+    published, fetched = threading.Event(), threading.Event()
+
+    class Hold(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            m = re.match(r"live viewer at http://0\.0\.0\.0:(\d+)/", msg)
+            if m:
+                port.append(int(m.group(1)))
+            elif msg.startswith('{"frame": 0,'):
+                published.set()
+                fetched.wait(300)
+
+    def work():
+        try:
+            outcome.append(drive(argv, {"fused_radiance": frames}))
+        except BaseException as e:  # handed to the main thread below
+            outcome.append(e)
+        finally:
+            published.set()
+
+    hold = Hold()
+    logger = logging.getLogger("refraction_tpu")
+    logger.addHandler(hold)
+    worker = threading.Thread(target=work, daemon=True)
+    try:
+        worker.start()
+        published.wait(600)
+        if port and not outcome:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port[0]}/frame",
+                                        timeout=60) as r:
+                if r.headers["Content-Type"] != "image/png":
+                    raise AssertionError(f"/frame: {r.headers}")
+                png.append(r.read())
+    finally:
+        fetched.set()
+        worker.join(600)
+        logger.removeHandler(hold)
+    if worker.is_alive():
+        raise AssertionError("the --serve run did not end")
+    if isinstance(outcome[0], BaseException):
+        raise outcome[0]
+    if not png:
+        raise AssertionError("no frame was fetched from the viewer")
+    return decode_png_bytes(png[0])
+
+
 def main() -> int:
     import torch
 
@@ -132,8 +211,19 @@ def main() -> int:
     from refraction_tpu_torch.render import count_live_rays, sample_offsets
     from refraction_tpu_torch import profile_rounds
     from refraction_tpu_torch.scene import (
-        auto_cluster_size, build_scene, load_scene, scene_from_jax)
+        auto_cluster_size, build_scene, load_instanced, load_scene,
+        scene_from_jax)
     from refraction_tpu_torch import run as cli
+    from refraction_tpu_torch import mxu_mt_bench, stallbench
+    from refraction_tpu_torch.fixtures import write_obj
+    from refraction_tpu_torch.kernels.mtbench import (
+        make_inputs, mt_args, mt_visits, mt_visits_plain, woop_args,
+        woop_visits, woop_visits_plain)
+    from refraction_tpu_torch.kernels.stallbench import (
+        VARIANTS as STALL_VARIANTS, mixed_carry, stall_iters,
+        stall_iters_plain)
+    from refraction_tpu_torch.render import render_heatmap
+    from refraction_tpu.io.png import load_png
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -191,7 +281,7 @@ def main() -> int:
                         sc, o, d, cull, 1e-4, 100.0), 20),
                     cuda_ms(torch, lambda: closest_hit_plain(
                         sc, o, d, cull, 1e-4, 100.0), 3),
-                    t_err)
+                    t_err, n_err)
     results["closest_hit"] = ch_times
     log(f"  time at 2^16 rays x 5120 tris: kernel {ch_times[0]:.3f} ms, "
         f"plain {ch_times[1]:.3f} ms")
@@ -441,7 +531,226 @@ def main() -> int:
             "--device", "cuda"])
         if rc != 0:
             raise AssertionError(f"profile_rounds {tag}: rc {rc}")
+    # --- phase 7: the traversal instruments ------------------------------
+    log("phase 7: instrument kernels (mtbench, stallbench) vs plain; their CLIs")
+    instruments = (mt_visits, woop_visits, stall_iters)
+    for k in instruments:
+        k.launches = 0
+    made = {"mt_visits": 0, "woop_visits": 0, "stall_iters": 0}
+    inp = make_inputs(0)
+    mix = np.random.default_rng(7).choice(np.float32([-1.0, 1.0]), 1024)
+    mt_err = {"mt_visits": 0.0, "woop_visits": 0.0}
+    for cname, cull in (("tool's +1", None), ("+-1 mix", mix)):
+        args = {"mt_visits": mt_args(inp, dev, cull),
+                "woop_visits": woop_args(inp, dev, cull)}
+        for v in (64, 70):
+            for fn, plain in ((mt_visits, mt_visits_plain),
+                              (woop_visits, woop_visits_plain)):
+                tk, ik = fn(*args[fn.__name__], v)
+                made[fn.__name__] += 1
+                tp, ip = plain(*args[fn.__name__], v)
+                torch.cuda.synchronize()
+                err = float((tk - tp).abs().max())
+                mt_err[fn.__name__] = max(mt_err[fn.__name__], err)
+                exact = bool(torch.equal(tk, tp) and torch.equal(ik, ip))
+                log(f"  {fn.__name__} cull {cname} V={v}: equal to plain "
+                    f"{exact} (t max abs err {err:.3e}), hits "
+                    f"{float((tk < 1e29).float().mean()):.4f}")
+                if not exact:
+                    raise AssertionError(f"{fn.__name__} V={v} differs")
+        par = mxu_mt_bench.parity(
+            mt_visits(*args["mt_visits"], mxu_mt_bench.DEFAULT_V),
+            woop_visits(*args["woop_visits"], mxu_mt_bench.DEFAULT_V))
+        made["mt_visits"] += 1
+        made["woop_visits"] += 1
+        log(f"  MT vs Woop kernel, cull {cname}, V={mxu_mt_bench.DEFAULT_V}: "
+            f"{par}")
+        if not (par["hits_mt"] == par["hits_woop"] > 0
+                and par["i_match"] >= 0.999 and par["t_match"] == 1.0):
+            raise AssertionError("MT and Woop kernels disagree")
+    sm = torch.arange(1024, dtype=torch.float32, device=dev)
+    x1 = torch.ones(8, 128, dtype=torch.float32, device=dev)
+    # The tool's all-ones carry, and one whose elements differ: only there
+    # does an OR over part of the block, or a misplaced output, show.
+    carries = {"ones": x1, "mixed": torch.from_numpy(mixed_carry(0)).to(dev)}
+    stall_err = 0.0
+    for variant in STALL_VARIANTS:
+        for n_iter in (64, 70):
+            for cname, x in carries.items():
+                got = stall_iters(variant, n_iter, sm, x)
+                made["stall_iters"] += 1
+                ref = stall_iters_plain(variant, n_iter, sm, x)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                stall_err = max(stall_err, err)
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"stall {variant} n_iter {n_iter} "
+                                         f"carry {cname}: max abs err {err}")
+    log(f"  stall_iters equal to plain for {', '.join(STALL_VARIANTS)} at "
+        f"n_iter 64 and 70, carries {' and '.join(carries)} (max abs err "
+        f"{stall_err:.3e})")
+    got = {k.__name__: k.launches for k in instruments}
+    if got != made:
+        raise AssertionError(f"phase 7 checks: launches {got}, made {made}")
+    # Kernel and plain times at the same shapes.
+    mt_a, woop_a = mt_args(inp, dev), woop_args(inp, dev)
+    vt = mxu_mt_bench.DEFAULT_V
+    mt_t = {"mt_visits": (cuda_ms(torch, lambda: mt_visits(*mt_a, vt), 20),
+                          cuda_ms(torch, lambda: mt_visits_plain(*mt_a, vt), 1)),
+            "woop_visits": (
+                cuda_ms(torch, lambda: woop_visits(*woop_a, vt), 20),
+                cuda_ms(torch, lambda: woop_visits_plain(*woop_a, vt), 1))}
+    stall_t = [sum(cuda_ms(torch, lambda v=v: fn(v, 64, sm, x1), reps)
+                   for v in STALL_VARIANTS)
+               for fn, reps in ((stall_iters, 20), (stall_iters_plain, 1))]
+    log(f"  V={vt}: MT kernel {mt_t['mt_visits'][0]:.4f} ms, plain "
+        f"{mt_t['mt_visits'][1]:.1f} ms; Woop kernel "
+        f"{mt_t['woop_visits'][0]:.4f} ms, plain {mt_t['woop_visits'][1]:.1f} "
+        f"ms; the six stall variants at n_iter 64: kernels {stall_t[0]:.4f} "
+        f"ms, plain {stall_t[1]:.1f} ms [{card}]")
+    for k in instruments:
+        k.launches = 0
+    if mxu_mt_bench.main([]) != 0 or stallbench.main([]) != 0:
+        raise AssertionError("an instrument CLI failed")
+    instr_launches = {k.__name__: k.launches for k in instruments}
+    want = {"mt_visits": mxu_mt_bench.launches_per_kernel(
+                mxu_mt_bench.DEFAULT_REPS),
+            "woop_visits": mxu_mt_bench.launches_per_kernel(
+                mxu_mt_bench.DEFAULT_REPS),
+            "stall_iters": len(STALL_VARIANTS) * (1 + stallbench.REPS)}
+    log(f"  launches during the CLIs: {instr_launches}")
+    if instr_launches != want:
+        raise AssertionError(f"CLI launches {instr_launches}, want {want}")
+
+    # --- phase 8: the CLI flags on CUDA ---------------------------------
+    log("phase 8: CLI flags (--instances, --accumulate/--resume, --heatmap, "
+        "--serve)")
+    counters = (fused_radiance, closest_hit, env_contribution, mega_round)
+
+    def drive(argv, want_launches):
+        """Run the CLI with every count set to 0 just before; the counts
+        just after must equal ``want_launches`` (kernels not named: 0)."""
+        for k in counters:
+            k.launches = 0
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        got = {k.__name__: k.launches for k in counters}
+        want = {k.__name__: want_launches.get(k.__name__, 0)
+                for k in counters}
+        if rc != 0 or got != want:
+            raise AssertionError(f"{argv}: rc {rc}, launches {got}, want "
+                                 f"{want}")
+        return got
+
+    env_path = paths["demo"][1]
+    # --instances: three instances, the third with mask 0 (dropped).
+    inst_dir = os.path.join(tmp, "instances")
+    os.makedirs(inst_dir)
+    ball, box = (os.path.join(inst_dir, f) for f in ("ball.obj", "box.obj"))
+    write_obj(ball, make_icosphere(3, 0.9))
+    write_obj(box, make_cube(1.2))
+    spec = os.path.join(inst_dir, "spec.json")
+    with open(spec, "w") as f:
+        json.dump([{"obj": ball, "translate": [-1.1, 0.0, 0.0]},
+                   {"obj": box, "translate": [1.2, 0.0, 0.0],
+                    "rotate_y_deg": 30.0},
+                   {"obj": box, "translate": [0.0, 1.6, 0.0], "mask": 0}], f)
+    drive(["--instances", spec, "--envmap", env_path, "--width", "1024",
+           "--height", "768", "--bounces", "5", "--frames", "4", "--out",
+           os.path.join(inst_dir, "frame.png"), "--raw", "--device", "cuda"],
+          {"fused_radiance": 4})
+    for i in range(4):
+        raw = np.load(os.path.join(inst_dir, f"frame_{i:04d}.npy"))
+        if (raw.shape != (768, 1024, 3) or not np.isfinite(raw).all()
+                or float(raw.std()) == 0.0):
+            raise AssertionError(f"instanced frame {i}: bad image")
+    cfg_i = RenderConfig(width=256, height=192, max_refract_depth=5,
+                         envmap_path=env_path)
+    inst_np, inst_meta = load_instanced(spec, cfg_i)
+    want_tris = make_icosphere(3, 0.9).num_tris + 12
+    if inst_meta.num_real_tris != want_tris:
+        raise AssertionError(f"instanced tris {inst_meta.num_real_tris}, "
+                             f"want {want_tris} (mask-0 instance dropped)")
+    inst = scene_from_jax(inst_np, dev)
+    frame_i = orbit_camera(0.3, cfg_i)
+    img_k = fused_radiance(inst, build_scalars(frame_i, cfg_i,
+                                               sample_offsets(1), dev), cfg_i)
+    o, d = generate_rays(frame_i, 256, 192, dev)
+    cuda_be = get_backend("cuda")
+    for k in counters:
+        k.launches = 0
+    img_e = render_pixels(inst, o, d, cfg_i, cuda_be.intersect,
+                          cuda_be.env_contribution)
+    torch.cuda.synchronize()
+    eager_launches = {k.__name__: k.launches for k in counters}
+    rounds = cfg_i.max_refract_depth + 1
+    if eager_launches != {"fused_radiance": 0, "closest_hit": rounds,
+                          "env_contribution": rounds, "mega_round": 0}:
+        raise AssertionError(f"eager instanced render: {eager_launches}")
+    inst_diff = image_diff(np, img_k, img_e.reshape(192, 256, 3))
+    check_image("instanced 256x192 frame kernel vs eager integrator (cuda "
+                "backend)", inst_diff)
+    log(f"  --instances: {inst_meta.num_real_tris} tris from 2 of 3 "
+        f"instances, 4 frames at 1024x768; eager launches {eager_launches}")
+
+    # --accumulate, then --resume: 4 + 2 frames of the demo orbit.
+    acc_dir = os.path.join(tmp, "acc")
+    base_args = ["--scene", paths["demo"][0], "--envmap", env_path,
+                 "--width", "1024", "--height", "768", "--bounces", "5",
+                 "--accumulate", "--raw", "--device", "cuda"]
+    angles = [0.01]
+    for _ in range(5):
+        angles.append(angles[-1] + cfg.orbit_speed)
+    drive(base_args + ["--frames", "4", "--out",
+                       os.path.join(acc_dir, "a.png")], {"fused_radiance": 4})
+    drive(base_args + ["--frames", "2", "--angle", repr(angles[4]),
+                       "--resume", os.path.join(acc_dir, "a_state.npz"),
+                       "--out", os.path.join(acc_dir, "b.png")],
+          {"fused_radiance": 2})
+    state = np.load(os.path.join(acc_dir, "b_state.npz"))
+    singles = np.mean([fused_radiance(demo, build_scalars(
+        orbit_camera(a, cfg), cfg, sample_offsets(1), dev), cfg).cpu().numpy()
+        for a in angles], axis=0, dtype=np.float64)
+    acc_err = float(np.abs(np.load(os.path.join(acc_dir, "b.npy"))
+                           - singles).max())
+    log(f"  --accumulate 4 + --resume 2: count {int(state['count'])}, image "
+        f"vs the mean of 6 single frames max abs err {acc_err:.3e}")
+    if int(state["count"]) != 6 or acc_err > 1e-6:
+        raise AssertionError("accumulation disagrees")
+
+    # --heatmap at the demo shape: one round-kernel launch per bounce round.
+    heat_png = os.path.join(tmp, "heat.png")
+    drive(["--scene", paths["demo"][0], "--envmap", env_path, "--width",
+           "1024", "--height", "768", "--bounces", "5", "--heatmap", heat_png,
+           "--device", "cuda"], {"mega_round": cfg.max_refract_depth + 1})
+    frame = orbit_camera(0.01, cfg)
+    counts = render_heatmap(demo, cfg, frame, dev)
+    live = count_live_rays(demo, cfg, frame, dev)
+    o, d = generate_rays(frame, 1024, 768, dev)
+    idx = torch.arange(0, 1024 * 768, LARGE_STRIDE, device=dev)
+    _, st_p = render_pixels(demo, o[idx], d[idx], cfg, eager.intersect,
+                            eager.env_contribution, collect_stats=True)
+    strided_equal = bool(np.array_equal(
+        counts.reshape(-1)[idx.cpu().numpy()], st_p["pixel_rays"].cpu().numpy()))
+    log(f"  --heatmap: counts sum {int(counts.sum())} (count_live_rays "
+        f"{live}), max {int(counts.max())} rays/pixel; equal to the eager "
+        f"integrator's pixel_rays on every {LARGE_STRIDE}th pixel: "
+        f"{strided_equal}")
+    if (int(counts.sum()) != live or not strided_equal
+            or load_png(heat_png).shape != (768, 1024, 3)):
+        raise AssertionError("heatmap disagrees")
+
+    # --serve 0 --frames 3 in a thread; one GET of /frame over loopback.
+    served = serve_one_frame(drive, 3, [
+        "--scene", paths["demo"][0], "--envmap", env_path, "--width", "256",
+        "--height", "192", "--bounces", "5", "--frames", "3", "--serve", "0",
+        "--out", os.path.join(tmp, "live", "frame.png"), "--device", "cuda"])
+    if served.shape != (192, 256, 3):
+        raise AssertionError(f"served frame shape {served.shape}")
+    log(f"  --serve: GET /frame over 127.0.0.1 returned a PNG of shape "
+        f"{served.shape}")
     shutil.rmtree(tmp, ignore_errors=True)
+
     kern = [{"name": "frame", "route": "cuda",
              "source": "refraction_tpu_torch/csrc/frame.cu",
              "replaces": "refraction_tpu/kernels/framekernel.py:106",
@@ -455,21 +764,46 @@ def main() -> int:
              "ms": wave["demo"]["wavefront_ms"],
              "plain_ms": wave["demo"]["plain_ms"],
              "timed": "render_pixels_mega (6 launches) vs the eager "
-                      "integrator, demo 1024x768 5/2"}]
-    off_path = [
-        {"name": "closest_hit", "route": "cuda",
-         "source": "refraction_tpu_torch/csrc/closest_hit.cu",
-         "replaces": "refraction_tpu/kernels/intersect_pallas.py:140",
-         "launches": launches["closest_hit"],
-         "max_rel_t_err": results["closest_hit"][2],
-         "ms": results["closest_hit"][0], "plain_ms": results["closest_hit"][1]},
-        {"name": "env", "route": "cuda",
-         "source": "refraction_tpu_torch/csrc/env.cu",
-         "replaces": "refraction_tpu/kernels/envmap_pallas.py:130",
-         "launches": launches["env"], "max_abs_err": results["env"][2],
-         "ms": results["env"][0], "plain_ms": results["env"][1]}]
-    print(json.dumps({"kernels": kern, "off_path_kernels": off_path,
-                      "frame_stream_ms": per_frame,
+                      "integrator, demo 1024x768 5/2"},
+            {"name": "closest_hit", "route": "cuda",
+             "source": "refraction_tpu_torch/csrc/closest_hit.cu",
+             "replaces": "refraction_tpu/kernels/intersect_pallas.py:140",
+             "launches": eager_launches["closest_hit"],
+             "max_abs_err": results["closest_hit"][3],
+             "max_rel_t_err": results["closest_hit"][2],
+             "ms": results["closest_hit"][0],
+             "plain_ms": results["closest_hit"][1],
+             "timed": "2^16 rays x 5,120 tris vs the brute force; launches "
+                      "from the eager instanced render of phase 8"},
+            {"name": "env", "route": "cuda",
+             "source": "refraction_tpu_torch/csrc/env.cu",
+             "replaces": "refraction_tpu/kernels/envmap_pallas.py:130",
+             "launches": eager_launches["env_contribution"],
+             "max_abs_err": results["env"][2],
+             "ms": results["env"][0], "plain_ms": results["env"][1],
+             "timed": "2^16 rays, 1024x2048 map vs the gather"},
+            {"name": "mt_vpu", "route": "cuda",
+             "source": "refraction_tpu_torch/csrc/mtbench.cu",
+             "replaces": "tools/mxu_mt_bench.py:44",
+             "launches": instr_launches["mt_visits"],
+             "max_abs_err": mt_err["mt_visits"],
+             "ms": mt_t["mt_visits"][0], "plain_ms": mt_t["mt_visits"][1],
+             "timed": f"V={vt} sub visits x 1,024 rays"},
+            {"name": "mt_woop", "route": "cuda",
+             "source": "refraction_tpu_torch/csrc/mtbench.cu",
+             "replaces": "tools/mxu_mt_bench.py:96",
+             "launches": instr_launches["woop_visits"],
+             "max_abs_err": mt_err["woop_visits"],
+             "ms": mt_t["woop_visits"][0], "plain_ms": mt_t["woop_visits"][1],
+             "timed": f"V={vt} sub visits x 1,024 rays"},
+            {"name": "stall", "route": "cuda",
+             "source": "refraction_tpu_torch/csrc/stallbench.cu",
+             "replaces": "tools/stallbench.py:49",
+             "launches": instr_launches["stall_iters"],
+             "max_abs_err": stall_err,
+             "ms": stall_t[0], "plain_ms": stall_t[1],
+             "timed": "the six variants at n_iter 64, summed"}]
+    print(json.dumps({"kernels": kern, "frame_stream_ms": per_frame,
                       "frame_ms_large": large_ms, "wavefront": wave,
                       "card": card}))
     print(json.dumps({"ok": True, "device": {

@@ -62,7 +62,8 @@ def _shade_hits(scene, o, d, outside, t, tri_idx, cfg: RenderConfig,
 
 def render_pixels(scene, origins: torch.Tensor, dirs: torch.Tensor,
                   cfg: RenderConfig, intersect_fn: Callable,
-                  env_fn: Callable, collect_stats: bool = False):
+                  env_fn: Callable, collect_stats: bool = False,
+                  ray_mask: torch.Tensor | None = None):
     """Trace N primary rays to completion; returns (N, 3) linear radiance.
 
     ``env_fn(scene, dirs, weight) -> (W, 3)`` is the weighted miss
@@ -71,6 +72,12 @@ def render_pixels(scene, origins: torch.Tensor, dirs: torch.Tensor,
     tensor, 'slot_rounds': int, 'pixel_rays': (N,) int32}): live lanes
     entering each trace round, dense slots, and the per-pixel live
     ray-tree size.
+
+    ``ray_mask`` ((N,) int): per-ray DXR InstanceInclusionMask (TraceRay's
+    mask, RayTracing.hlsl:60; the reference passes 0xff). Children inherit
+    their parent's mask, as every recursive TraceRay re-passes it. It
+    needs a mask-capable ``intersect_fn`` (the ``torch`` backend); the
+    ``cuda`` backend raises on it.
     """
     n = origins.shape[0]
     dev = origins.device
@@ -85,6 +92,7 @@ def render_pixels(scene, origins: torch.Tensor, dirs: torch.Tensor,
     radiance = torch.zeros(n, 3, dtype=f32t, device=dev)
     rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
     pixel_rays = torch.zeros(n, dtype=torch.int32, device=dev)
+    mask_pool = None if ray_mask is None else ray_mask.to(torch.int32)
     slot_rounds = 0
     zero = torch.zeros((), dtype=f32t, device=dev)
 
@@ -97,7 +105,11 @@ def render_pixels(scene, origins: torch.Tensor, dirs: torch.Tensor,
         tmin = cfg.primary_tmin if count == 0 else cfg.secondary_tmin
         tmax = cfg.primary_tmax if count == 0 else cfg.secondary_tmax
 
-        res = intersect_fn(scene, o, d, outside, alive, tmin, tmax)
+        if mask_pool is None:
+            res = intersect_fn(scene, o, d, outside, alive, tmin, tmax)
+        else:
+            res = intersect_fn(scene, o, d, outside, alive, tmin, tmax,
+                               ray_mask=mask_pool)
         hit, t, tri_idx, knorm = res
         hit = hit & alive
 
@@ -126,6 +138,8 @@ def render_pixels(scene, origins: torch.Tensor, dirs: torch.Tensor,
             weight = torch.cat([new_weight, refl_weight])
             outside = torch.cat([new_outside, outside])
             alive = torch.cat([refr_alive, hit])
+            if mask_pool is not None:
+                mask_pool = torch.cat([mask_pool, mask_pool])
         else:
             o, d = safe_o, new_d
             weight, outside, alive = new_weight, new_outside, refr_alive
@@ -205,20 +219,27 @@ def render_pixels_mega(scene, origins: torch.Tensor, dirs: torch.Tensor,
     On CUDA tensors each round is one round-kernel launch; on CPU tensors
     `mega_round` takes its plain version. N may be any positive count:
     there is no tile padding. With ``collect_stats`` returns (radiance,
-    {'rays_traced': int64 scalar tensor, 'slot_rounds': int}): the live
-    lanes (cull != 0) entering each round, summed on the device, and the
-    lanes of every round.
+    {'rays_traced': int64 scalar tensor, 'slot_rounds': int, 'pixel_rays':
+    (N,) int32}): the live lanes (cull != 0) entering each round, summed
+    on the device, the lanes of every round, and the live lanes per pixel
+    (lane i belongs to pixel i % N).
     """
     n = origins.shape[0]
-    radiance = torch.zeros(n, 3, dtype=torch.float32, device=origins.device)
-    rays_traced = torch.zeros((), dtype=torch.int64, device=origins.device)
+    dev = origins.device
+    radiance = torch.zeros(n, 3, dtype=torch.float32, device=dev)
+    rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
+    pixel_rays = torch.zeros(n, dtype=torch.int32, device=dev)
     slot_rounds = 0
     for state, run in wavefront_rounds(scene, origins, dirs, cfg):
         if collect_stats:
-            rays_traced = rays_traced + (state[6] != 0).sum()
+            live = state[6] != 0
+            rays_traced = rays_traced + live.sum()
+            pixel_rays = pixel_rays + live.reshape(-1, n).sum(
+                dim=0, dtype=torch.int32)
             slot_rounds += int(state.shape[1])
         radiance = radiance + run().radiance.reshape(-1, n, 3).sum(dim=0)
     if collect_stats:
         return radiance, {"rays_traced": rays_traced,
-                          "slot_rounds": slot_rounds}
+                          "slot_rounds": slot_rounds,
+                          "pixel_rays": pixel_rays}
     return radiance

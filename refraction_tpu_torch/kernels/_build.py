@@ -52,6 +52,12 @@ SIGNATURES = {
     # stream
     "rt_round": [_F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I,
                  _I, _I, _I, _I, _I, _P],
+    # tri, o, d, cull, r, v, t_out, i_out, stream
+    "rt_mt_visits": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+    # wmat, rhs, cull, r, v, t_out, i_out, stream
+    "rt_woop_visits": [_P, _P, _P, _I, _I, _P, _P, _P],
+    # variant, n_iter, sm, x, out, stream
+    "rt_stall": [_I, _I, _P, _P, _P, _P],
 }
 
 

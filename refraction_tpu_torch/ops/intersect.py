@@ -11,7 +11,9 @@ Semantics, as in the JAX/numpy version:
   ``want_front`` accept only front faces, the others only back faces;
 - the range test is inclusive, ``tmin <= t <= tmax``;
 - ties go to the lowest triangle index (``argmin`` returns the first);
-- zero-area pad triangles have ``det == 0`` and never hit.
+- zero-area pad triangles have ``det == 0`` and never hit;
+- with ``tri_mask`` and ``ray_mask`` (DXR instance visibility), triangle
+  j is testable by ray i iff ``tri_mask[j] & ray_mask[i] != 0``.
 """
 
 from __future__ import annotations
@@ -37,11 +39,13 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _closest_block(origins, dirs, tri_a, tri_e1, tri_e2, tmin, tmax,
-                   want_front):
+                   want_front, tri_mask, ray_mask):
     d = dirs[:, None, :]
     pvec = _cross(d, tri_e2[None])
     det = dot3(tri_e1[None], pvec)
     accept = torch.where(want_front[:, None], det > 0, det < 0)
+    if ray_mask is not None:
+        accept = accept & ((tri_mask[None, :] & ray_mask[:, None]) != 0)
     safe_det = torch.where(det == 0, torch.ones_like(det), det)
     inv_det = 1.0 / safe_det
     tvec = origins[:, None, :] - tri_a[None]
@@ -57,22 +61,27 @@ def _closest_block(origins, dirs, tri_a, tri_e1, tri_e2, tmin, tmax,
 
 
 def intersect_closest(origins, dirs, tri_a, tri_e1, tri_e2, tmin: float,
-                      tmax: float, want_front):
+                      tmax: float, want_front, tri_mask=None, ray_mask=None):
     """Closest hit of N rays: (hit (N,) bool, t (N,), tri_idx (N,) int32).
 
     ``origins``/``dirs`` (N, 3) float32, ``tri_*`` (T, 3), ``want_front``
     (N,) bool; ``tmin``/``tmax`` are rounded to float32. Where ``hit`` is
-    False, ``t`` is 3e38 and ``tri_idx`` is 0.
+    False, ``t`` is 3e38 and ``tri_idx`` is 0. ``tri_mask`` (T,) and
+    ``ray_mask`` (N,) int32 come together or not at all.
     """
+    if (tri_mask is None) != (ray_mask is None):
+        raise ValueError("tri_mask and ray_mask: give both or neither")
     tmin, tmax = f32(tmin), f32(tmax)
     n = origins.shape[0]
     chunk = max(1, _CHUNK_ELEMS // max(int(tri_a.shape[0]), 1))
     if n <= chunk:
         return _closest_block(origins, dirs, tri_a, tri_e1, tri_e2, tmin,
-                              tmax, want_front)
+                              tmax, want_front, tri_mask, ray_mask)
     parts = [
         _closest_block(origins[s:s + chunk], dirs[s:s + chunk], tri_a,
-                       tri_e1, tri_e2, tmin, tmax, want_front[s:s + chunk])
+                       tri_e1, tri_e2, tmin, tmax, want_front[s:s + chunk],
+                       tri_mask,
+                       None if ray_mask is None else ray_mask[s:s + chunk])
         for s in range(0, n, chunk)
     ]
     return tuple(torch.cat([p[k] for p in parts]) for k in range(3))

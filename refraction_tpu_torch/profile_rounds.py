@@ -19,7 +19,6 @@ rounds; the live lanes sum to the frame's ``rays_traced``.
 from __future__ import annotations
 
 import argparse
-import time
 
 import torch
 
@@ -28,24 +27,9 @@ from refraction_tpu_torch.camera import CameraFrame, generate_rays, orbit_camera
 from refraction_tpu_torch.integrator import wavefront_rounds
 from refraction_tpu_torch.run import build_config
 from refraction_tpu_torch.scene import load_scene, scene_from_jax
+from refraction_tpu_torch.timing import require_device, time_ms
 
 REPS = 5
-
-
-def _time_ms(fn, device: torch.device) -> float:
-    """ms of one call of ``fn``: CUDA events on a CUDA device, the host
-    clock otherwise."""
-    if device.type == "cuda":
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        fn()
-        ev1.record()
-        torch.cuda.synchronize(device)
-        return ev0.elapsed_time(ev1)
-    t0 = time.perf_counter()
-    fn()
-    return (time.perf_counter() - t0) * 1e3
 
 
 def profile_rounds(scene, cfg: RenderConfig, frame: CameraFrame,
@@ -57,8 +41,8 @@ def profile_rounds(scene, cfg: RenderConfig, frame: CameraFrame,
     rows = []
     for count, (state, run) in enumerate(wavefront_rounds(scene, o, d, cfg)):
         live = int((state[6] != 0).sum())
-        _time_ms(run, device)  # warm-up
-        ms = min(_time_ms(run, device) for _ in range(REPS))
+        time_ms(run, device)  # warm-up
+        ms = min(time_ms(run, device) for _ in range(REPS))
         rows.append({"round": count, "lanes": int(state.shape[1]),
                      "live": live, "ms": ms})
     return rows
@@ -80,9 +64,7 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: CUDA is not available")
+    device = require_device(args.device)
     cfg = build_config(args)
     scene_np, meta = load_scene(cfg)
     scene = scene_from_jax(scene_np, device)

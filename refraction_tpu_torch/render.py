@@ -1,7 +1,8 @@
 """Frame rendering: camera -> frame kernel (or eager integrator) -> image.
 
 Port of `refraction_tpu.render` (make_renderer, render_frame,
-rays_per_frame, sample_offsets). Two backends:
+rays_per_frame, sample_offsets, render_heatmap, heatmap_to_rgb,
+Accumulator). Two backends:
 
 - ``"cuda"``: the fused path, one frame-kernel launch per frame
   (kernels/framekernel.fused_radiance). On CPU tensors its wrapper takes
@@ -112,3 +113,71 @@ def count_live_rays(scene: TorchScene, cfg: RenderConfig, frame: CameraFrame,
         _, stats = render_pixels_mega(scene, o, d, cfg, collect_stats=True)
         total = total + stats["rays_traced"]
     return int(total)
+
+
+def render_heatmap(scene: TorchScene, cfg: RenderConfig, frame: CameraFrame,
+                   device: torch.device | str) -> np.ndarray:
+    """Per-pixel live-ray count, (H, W) int32: every live lane entering a
+    bounce round of the pixel's ray tree, summed over the spp samples
+    (1 = the primary missed straight to the envmap). Port of
+    `refraction_tpu.render.render_heatmap`, through `render_pixels_mega`:
+    on CUDA one round-kernel launch per bounce round and sample, the
+    counts summed on the device; one host copy at the end."""
+    counts = torch.zeros(cfg.width * cfg.height, dtype=torch.int32,
+                         device=device)
+    for off in sample_offsets(cfg.spp):
+        o, d = generate_rays(frame, cfg.width, cfg.height, device, jitter=off)
+        _, stats = render_pixels_mega(scene, o, d, cfg, collect_stats=True)
+        counts = counts + stats["pixel_rays"]
+    return counts.reshape(cfg.height, cfg.width).cpu().numpy()
+
+
+def heatmap_to_rgb(counts: np.ndarray) -> np.ndarray:
+    """Map (H, W) ray counts to a (H, W, 3) float32 image: black (0) ->
+    deep blue (1 ray) -> orange -> white (max). A copy of
+    `refraction_tpu.render.heatmap_to_rgb` (that module imports JAX)."""
+    c = counts.astype(np.float64)
+    t = np.where(c > 0, c / max(float(c.max()), 1.0), 0.0)
+    stops = np.array([
+        [0.00, 0.0, 0.0, 0.0],
+        [0.01, 0.05, 0.05, 0.35],
+        [0.40, 0.60, 0.20, 0.10],
+        [0.75, 0.95, 0.60, 0.15],
+        [1.00, 1.0, 1.0, 1.0],
+    ])
+    rgb = np.stack([
+        np.interp(t, stops[:, 0], stops[:, k + 1]) for k in range(3)
+    ], axis=-1)
+    return rgb.astype(np.float32)
+
+
+class Accumulator:
+    """Progressive accumulation state, saved and resumed as ``.npz``.
+
+    A copy of `refraction_tpu.render.Accumulator` (that module imports
+    JAX): a float64 host sum and a frame count, in the same ``sum`` /
+    ``count`` file format, so a state saved by either package resumes in
+    the other."""
+
+    def __init__(self, height: int, width: int):
+        self.sum = np.zeros((height, width, 3), np.float64)
+        self.count = 0
+
+    def add(self, img: np.ndarray) -> None:
+        self.sum += np.asarray(img, np.float64)
+        self.count += 1
+
+    @property
+    def image(self) -> np.ndarray:
+        return (self.sum / max(self.count, 1)).astype(np.float32)
+
+    def save(self, path: str) -> None:
+        np.savez(path, sum=self.sum, count=self.count)
+
+    @classmethod
+    def load(cls, path: str) -> "Accumulator":
+        z = np.load(path)
+        acc = cls(z["sum"].shape[0], z["sum"].shape[1])
+        acc.sum = z["sum"]
+        acc.count = int(z["count"])
+        return acc

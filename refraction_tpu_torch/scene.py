@@ -1,10 +1,12 @@
 """The scene on a torch device: port of `refraction_tpu.scene.scene_to_device`.
 
 Scene building (OBJ/texture ingest, spatial sort, padding, box tables)
-stays `refraction_tpu.scene.build_scene` / `load_scene`, which are numpy.
-`scene_from_jax` carries the built scene across: it uploads the leaves the
-GPU path reads and skips the TPU-only layouts (``env_packed``,
-``env_codes``/``env_lut``, ``tri_norm_vmem``, ``cluster_records``).
+stays `refraction_tpu.scene.build_scene` / `load_scene` /
+`load_instanced` (the ``--instances`` spec: N placed meshes baked to
+world space, mask-0 instances dropped), which are numpy. `scene_from_jax`
+carries the built scene across: it uploads the leaves the GPU path reads
+and skips the TPU-only layouts (``env_packed``, ``env_codes``/``env_lut``,
+``tri_norm_vmem``, ``cluster_records``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from refraction_tpu.scene import (  # noqa: F401  (re-exported builders)
     SUB_TRIS,
     auto_cluster_size,
     build_scene,
+    load_instanced,
     load_scene,
 )
 
@@ -37,7 +40,7 @@ class TorchScene(NamedTuple):
     cluster_bounds: torch.Tensor   # (C, 6) [lo | hi]; cluster c = tris [c*cs, (c+1)*cs)
     sub_bounds: torch.Tensor       # (T/sub_tris, 6) [lo | hi]
     envmap: torch.Tensor           # (H, W, 3) equirect map
-    tri_mask: torch.Tensor         # (T,) int32 instance mask (pad tris 0)
+    tri_mask: torch.Tensor | None  # (T,) int32 instance mask (pad tris 0)
     sub_tris: int                  # triangles per sub box
 
     @property
@@ -59,12 +62,15 @@ class TorchScene(NamedTuple):
 
 def scene_from_jax(scene, device: torch.device | str) -> TorchScene:
     """Upload a `refraction_tpu.scene.Scene` (numpy or JAX leaves) to
-    ``device``. Values are copied bit for bit."""
+    ``device``. Values are copied bit for bit; a scene built by hand
+    without ``tri_mask`` keeps None there."""
 
     def put(name, dtype):
+        leaf = getattr(scene, name)
+        if leaf is None and name == "tri_mask":
+            return None
         # torch.tensor copies: JAX hands out read-only host buffers.
-        return torch.tensor(np.asarray(getattr(scene, name), dtype),
-                            device=device)
+        return torch.tensor(np.asarray(leaf, dtype), device=device)
 
     leaves = {name: put(name, np.int32 if name == "tri_mask" else np.float32)
               for name in UPLOADED}

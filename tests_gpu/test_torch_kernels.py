@@ -4,7 +4,9 @@ and the frame kernel vs the NumPy oracle.
 Tolerances: the kernels are built with -fmad=false, so traversal winners
 and shading round like the plain float32 versions; images may still differ
 in a few pixels where float noise flips a texel or a total-internal-
-reflection test, so image bars are RMSE and a share of pixels.
+reflection test, so image bars are RMSE and a share of pixels. The
+instrument kernels (mtbench, stallbench) run the plain versions' float32
+operations in the same order, so they are compared exactly.
 """
 
 import numpy as np
@@ -27,6 +29,11 @@ from refraction_tpu_torch.kernels.intersect import (
     closest_hit, closest_hit_plain)
 from refraction_tpu_torch.kernels.megakernel import (
     mega_round, mega_round_plain)
+from refraction_tpu_torch.kernels.mtbench import (
+    make_inputs, mt_args, mt_visits, mt_visits_plain, woop_args, woop_visits,
+    woop_visits_plain)
+from refraction_tpu_torch.kernels.stallbench import (
+    VARIANTS, mixed_carry, stall_iters, stall_iters_plain)
 from refraction_tpu_torch.ops.backends import get_backend
 from refraction_tpu_torch.render import sample_offsets
 from refraction_tpu_torch.scene import build_scene, scene_from_jax
@@ -213,3 +220,39 @@ def test_wavefront_matches_frame_kernel(cuda, name):
     assert ok, why
     assert int(st["rays_traced"]) == int(st_p["rays_traced"])
     assert st["slot_rounds"] == st_p["slot_rounds"]
+
+
+@pytest.mark.parametrize("v", [64, 70])
+@pytest.mark.parametrize("cull", ["ones", "mix"])
+def test_mtbench_kernels_equal_plain(cuda, cull, v):
+    """V = 70 wraps the 64-sub table; the mix has both cull signs."""
+    inp = make_inputs(0)
+    c = (None if cull == "ones" else
+         np.random.default_rng(7).choice(np.float32([-1.0, 1.0]), 1024))
+    for fn, plain, args in ((mt_visits, mt_visits_plain, mt_args(inp, cuda, c)),
+                            (woop_visits, woop_visits_plain,
+                             woop_args(inp, cuda, c))):
+        before = fn.launches
+        t, i = fn(*args, v)
+        assert fn.launches == before + 1
+        t_p, i_p = plain(*args, v)
+        torch.cuda.synchronize()
+        assert bool((t < 1e29).float().mean() > 0.9)
+        assert torch.equal(t, t_p) and torch.equal(i, i_p)
+
+
+@pytest.mark.parametrize("carry", ["ones", "mixed"])
+@pytest.mark.parametrize("n_iter", [64, 70])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_stall_kernel_equals_plain(cuda, variant, n_iter, carry):
+    """On the tool's all-ones carry and on one whose elements differ (only
+    there does a partial or misplaced block OR change the output)."""
+    sm = torch.arange(1024, dtype=torch.float32, device=cuda)
+    x = (torch.ones(8, 128, dtype=torch.float32, device=cuda)
+         if carry == "ones" else torch.from_numpy(mixed_carry(0)).to(cuda))
+    before = stall_iters.launches
+    got = stall_iters(variant, n_iter, sm, x)
+    assert stall_iters.launches == before + 1
+    ref = stall_iters_plain(variant, n_iter, sm, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)

@@ -11,14 +11,21 @@ and the per-round wavefront (``integrator.render_pixels_mega``,
 Phases (any failure raises; nothing is caught):
   0. card name and power limit (nvidia-smi), torch and CUDA versions;
   1. build csrc/*.cu with nvcc;
-  2. closest-hit kernel vs the brute force, 2^16 seeded rays, both culls;
+  2. closest-hit kernel vs the brute force, 2^16 seeded rays, both culls:
+     winners equal on every ray, on two icospheres (flat and supers walks)
+     and on two scenes with equal-t triangle pairs (a cluster of copies of
+     triangles from all over the mesh, appended at the end of the table,
+     whose box is entered first: the lower index must still win);
   3. env kernel vs the gather, 2^16 directions on a 1024x2048 map;
   4. frame kernel vs the eager integrator at 256x192 (five cases) and on
-     the 81,920-triangle scene at 160x90;
+     the 81,920-triangle scene at 160x90, each with the traversal walk it
+     took (flat: at most 32 clusters; supers);
   5. the CLI on the demo configuration (1024x768, 5/2 bounces, 8 orbit
      frames, 1,280 triangles) and on the large scene (1920x1080, 4
      bounces, 4 frames, 81,920 triangles); the frame kernel must be
-     launched exactly once per frame;
+     launched exactly once per frame; then its ptxas line (registers,
+     stack, spills), its device time at demo, demo spp 4 and large, and
+     each one's bound (bounds.py: the traversal work of the frame's rays);
   6. round kernel vs its plain version per variant on 2^16 lanes (with
      subnormal weights); the wavefront path at the demo configuration and
      at the large scene, with every launch count set to 0 just before each
@@ -52,9 +59,10 @@ Phases (any failure raises; nothing is caught):
 The line before the last is a JSON object with each kernel's launches in
 its main-path phase (5 for the frame kernel, 6 for the round kernel, 8
 for the closest-hit and env kernels, the CLIs of 7 for the
-instruments), its error against the plain version and both times; the
-last line is ``{"ok": true, "device": {...}}``. Without CUDA it exits
-non-zero and prints no result.
+instruments), its error against the plain version, both times and its
+bound (bounds.py; ``library_ms`` is null: no single PyTorch call computes
+any of these functions); the last line is ``{"ok": true, "device":
+{...}}``. Without CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -70,7 +78,7 @@ import time
 
 # Tolerances (stated once, used by every phase; the instrument kernels and
 # the accumulation are held exactly / to 1e-6 where they are checked):
-HIT_AGREE = 0.9999      # share of rays with equal hit mask and idx
+HIT_AGREE = 0.9999      # share of lanes with equal liveness (round kernel)
 T_RTOL = 1e-5           # relative t error where idx agrees
 ENV_AGREE = 0.9999      # share of directions with an equal texel
 IMG_RMSE = 1e-4         # frame RMSE against the plain version
@@ -124,7 +132,7 @@ def serve_one_frame(drive, frames: int, argv) -> "np.ndarray":
     import threading
     import urllib.request
 
-    from refraction_tpu.io.png import decode_png_bytes
+    from refraction_tpu_torch.io.png import decode_png_bytes
 
     port, outcome, png = [], [], []
     published, fetched = threading.Event(), threading.Event()
@@ -192,15 +200,17 @@ def main() -> int:
 
     import numpy as np
 
-    from refraction_tpu_torch import RenderConfig
+    from refraction_tpu_torch import RenderConfig, bounds
+    from refraction_tpu_torch.bvh.clusters import build_clusters
     from refraction_tpu_torch.camera import orbit_camera
-    from refraction_tpu_torch.fixtures import (
-        make_cube, make_gradient_envmap, make_icosphere, write_scene)
+    from refraction_tpu_torch.fixtures import write_obj, write_scene
+    from refraction_tpu_torch.io.primitives import (
+        make_cube, make_gradient_envmap, make_icosphere)
     from refraction_tpu_torch.kernels import _build
     from refraction_tpu_torch.kernels.envmap import (
         env_contribution, env_contribution_plain)
     from refraction_tpu_torch.kernels.framekernel import (
-        build_scalars, fused_radiance, fused_radiance_plain)
+        build_scalars, fused_radiance, fused_radiance_plain, walk_of)
     from refraction_tpu_torch.kernels.intersect import (
         closest_hit, closest_hit_plain)
     from refraction_tpu_torch.kernels.megakernel import (
@@ -208,14 +218,14 @@ def main() -> int:
     from refraction_tpu_torch.camera import generate_rays
     from refraction_tpu_torch.integrator import render_pixels, render_pixels_mega
     from refraction_tpu_torch.ops.backends import get_backend
-    from refraction_tpu_torch.render import count_live_rays, sample_offsets
+    from refraction_tpu_torch.render import (
+        count_live_rays, frame_traversal_work, sample_offsets)
     from refraction_tpu_torch import profile_rounds
     from refraction_tpu_torch.scene import (
-        auto_cluster_size, build_scene, load_instanced, load_scene,
+        Scene, auto_cluster_size, build_scene, load_instanced, load_scene,
         scene_from_jax)
     from refraction_tpu_torch import run as cli
     from refraction_tpu_torch import mxu_mt_bench, stallbench
-    from refraction_tpu_torch.fixtures import write_obj
     from refraction_tpu_torch.kernels.mtbench import (
         make_inputs, mt_args, mt_visits, mt_visits_plain, woop_args,
         woop_visits, woop_visits_plain)
@@ -223,7 +233,7 @@ def main() -> int:
         VARIANTS as STALL_VARIANTS, mixed_carry, stall_iters,
         stall_iters_plain)
     from refraction_tpu_torch.render import render_heatmap
-    from refraction_tpu.io.png import load_png
+    from refraction_tpu_torch.io.png import load_png
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -245,6 +255,30 @@ def main() -> int:
         cs = cluster_size or auto_cluster_size(mesh.num_tris)
         return scene_from_jax(build_scene(mesh, env, cs)[0], dev)
 
+    def equal_t_scene(mesh, env, cs):
+        """The built scene plus one last cluster of copies of cs of its
+        triangles, drawn from the whole mesh (rows copied bit for bit):
+        every copy has an equal-t twin of lower index, and the copies' box
+        spans the mesh, so a near-to-far walk enters it first. Returns the
+        device scene and the twins' indices."""
+        base = build_scene(mesh, env, cs)[0]
+        pick = np.random.default_rng(9).permutation(base.num_tris)[:cs]
+        rows = {k: np.concatenate([getattr(base, k), getattr(base, k)[pick]])
+                for k in ("tri_a", "tri_e1", "tri_e2", "tri_packed",
+                          "tri_norm_packed", "tri_mask")}
+        a = rows["tri_a"][-cs:]
+        corners = np.stack([a, a + rows["tri_e1"][-cs:],
+                            a + rows["tri_e2"][-cs:]], axis=1)
+        pad = np.float32(1e-5)  # a box a little larger only opens more
+        boxes = [np.concatenate([lo - pad, hi + pad], axis=1)
+                 for lo, hi in (build_clusters(corners, cs),
+                                build_clusters(corners, 8))]
+        host = Scene(**rows, envmap=base.envmap,
+                     cluster_bounds=np.concatenate([base.cluster_bounds,
+                                                    boxes[0]]),
+                     sub_bounds=np.concatenate([base.sub_bounds, boxes[1]]))
+        return scene_from_jax(host, dev), pick
+
     # --- phase 2: closest hit -------------------------------------------
     log("phase 2: closest-hit kernel vs brute force")
     rng = np.random.default_rng(2)
@@ -255,10 +289,15 @@ def main() -> int:
     o = torch.from_numpy(o_np).to(dev)
     d = torch.from_numpy(d_np).to(dev)
     env_small = make_gradient_envmap(64, 128)
+    ico4 = make_icosphere(4)
     ch_times = None
-    for name, mesh in (("icosphere4", make_icosphere(4)),
-                       ("cube2", make_cube(2.0))):
-        sc = device_scene(mesh, env_small)
+    cases = [(name, device_scene(mesh, env_small, cs), None)
+             for name, mesh, cs in (("icosphere4", ico4, None),
+                                    ("icosphere4 cs8", ico4, 8),
+                                    ("cube2", make_cube(2.0), None))]
+    cases += [(f"icosphere4 cs{cs} + equal-t copies",
+               *equal_t_scene(ico4, env_small, cs)) for cs in (1024, 128, 8)]
+    for name, sc, twins in cases:
         for cull_v in (1.0, -1.0):
             cull = torch.full((n,), cull_v, dtype=torch.float32, device=dev)
             tk, ik, nk = closest_hit(sc, o, d, cull, 1e-4, 100.0)
@@ -270,18 +309,25 @@ def main() -> int:
             t_err = float(((tk - tp).abs() / tp.abs().clamp_min(1e-30))[hit]
                           .max()) if bool(hit.any()) else 0.0
             n_err = float((nk - np_).abs()[hit].max()) if bool(hit.any()) else 0.0
-            log(f"  {name} cull {cull_v:+.0f}: idx/hit agree {agree:.6f}, "
-                f"hits {int((ip >= 0).sum())}, t rel err {t_err:.2e}, "
-                f"normal abs err {n_err:.2e}")
-            if agree < HIT_AGREE or t_err > T_RTOL:
+            msg = (f"  {name} ({sc.num_clusters} clusters, walk "
+                   f"{walk_of(sc)}) cull {cull_v:+.0f}: winners equal on "
+                   f"{agree:.6f} of rays, hits {int((ip >= 0).sum())}, t rel "
+                   f"err {t_err:.2e}, normal abs err {n_err:.2e}")
+            if twins is not None:
+                msg += (f"; winners with an equal-t copy "
+                        f"{int(np.isin(ip.cpu().numpy(), twins).sum())}")
+            log(msg)
+            if agree != 1.0 or t_err > T_RTOL:
                 raise AssertionError(f"closest_hit {name} cull {cull_v}")
             if name == "icosphere4" and cull_v > 0:
+                t_hit = torch.where(ip >= 0, tp, torch.full_like(tp, 100.0))
                 ch_times = (
                     cuda_ms(torch, lambda: closest_hit(
                         sc, o, d, cull, 1e-4, 100.0), 20),
                     cuda_ms(torch, lambda: closest_hit_plain(
                         sc, o, d, cull, 1e-4, 100.0), 3),
-                    t_err, n_err)
+                    t_err, n_err,
+                    bounds.closest_hit_bound(sc, o, d, cull, 1e-4, t_hit))
     results["closest_hit"] = ch_times
     log(f"  time at 2^16 rays x 5120 tris: kernel {ch_times[0]:.3f} ms, "
         f"plain {ch_times[1]:.3f} ms")
@@ -304,7 +350,7 @@ def main() -> int:
     results["env"] = (
         cuda_ms(torch, lambda: env_contribution(sc_env, de, w), 50),
         cuda_ms(torch, lambda: env_contribution_plain(sc_env, de, w), 20),
-        env_err)
+        env_err, bounds.env_bound(sc_env, n))
     log(f"  time at 2^16 rays: kernel {results['env'][0]:.4f} ms, "
         f"plain {results['env'][1]:.4f} ms")
 
@@ -332,7 +378,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if tuple(img_k.shape) != (cfg.height, cfg.width, 3):
             raise AssertionError(f"{tag}: shape {tuple(img_k.shape)}")
-        check_image(tag, image_diff(np, img_k, img_p))
+        check_image(f"{tag} (walk {walk_of(sc)})", image_diff(np, img_k, img_p))
 
     # --- phase 5: the main path through the CLI -------------------------
     log("phase 5: main path (python -m refraction_tpu_torch.run)")
@@ -403,18 +449,35 @@ def main() -> int:
     diff = image_diff(np, img_k, img_p)
     check_image("demo 1024x768 kernel vs plain", diff)
     frame_err = diff["max_abs_err"]
-    frame_ms = cuda_ms(torch, lambda: fused_radiance(demo, scal, cfg), 10)
+    kernel_lines = _build.BuildInfo.log.splitlines()
+    for i, line in enumerate(kernel_lines):
+        if "Compiling entry function" in line and "rt_frame_kernel" in line:
+            walk = "supers" if "ILi1E" in line else "flat"
+            log(f"  ptxas -v, frame kernel ({walk} walk): "
+                + " | ".join(x.strip() for x in kernel_lines[i + 2:i + 4]))
     plain_ms = cuda_ms(torch, lambda: fused_radiance_plain(demo, scal, cfg), 1)
-    log(f"  demo 1024x768 5/2 bounces: frame kernel {frame_ms:.3f} ms, "
-        f"plain (eager integrator, same shape) {plain_ms:.1f} ms [{card}]")
     cfg_l = RenderConfig(width=1920, height=1080, max_refract_depth=4,
                          scene_path=paths["large"][0],
                          envmap_path=paths["large"][1])
     large = scene_from_jax(load_scene(cfg_l)[0], dev)
-    scal_l = build_scalars(orbit_camera(0.01, cfg_l), cfg_l, sample_offsets(1),
-                           dev)
-    large_ms = cuda_ms(torch, lambda: fused_radiance(large, scal_l, cfg_l), 10)
-    log(f"  large 1920x1080 4 bounces: frame kernel {large_ms:.3f} ms [{card}]")
+    cfg_4 = cfg.replace(spp=4)
+    frame_rows = {}  # cell -> kernel ms, bound and the frame's work levels
+    for tag, sc, c in (("demo", demo, cfg), ("demo spp 4", demo, cfg_4),
+                       ("large", large, cfg_l)):
+        cam = orbit_camera(0.01, c)
+        sc_c = build_scalars(cam, c, sample_offsets(c.spp), dev)
+        ms = cuda_ms(torch, lambda: fused_radiance(sc, sc_c, c), 10)
+        levels = frame_traversal_work(sc, c, cam, dev)
+        b = bounds.frame_bound(sc, c, levels)
+        frame_rows[tag] = {"ms": ms, "bound": b, "levels": levels}
+        log(f"  {tag} {c.width}x{c.height} {c.max_refract_depth}/"
+            f"{c.max_reflect_depth} bounces spp {c.spp}, walk {walk_of(sc)}: "
+            f"frame kernel {ms:.4f} ms; bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']} ({b['ops']} FP32 ops, {b['bytes']} bytes; "
+            f"{b['work']['rays']} rays), {b['bound_ms'] / ms:.1%} of it "
+            f"[{card}]")
+    log(f"  demo plain (eager integrator, same shape) {plain_ms:.1f} ms")
+    frame_ms, large_ms = frame_rows["demo"]["ms"], frame_rows["large"]["ms"]
     if launches["frame"] != sum(r[-1] for r in runs):
         raise AssertionError(f"frame kernel launches {launches['frame']}")
 
@@ -751,11 +814,21 @@ def main() -> int:
         f"{served.shape}")
     shutil.rmtree(tmp, ignore_errors=True)
 
+    mt_r, vt_words = int(mt_a[3].numel()), {"mt": inp.tri_flat.size,
+                                             "woop": inp.W.size}
+    bnd = {"frame": frame_rows["demo"]["bound"],
+           "round": bounds.round_bound(demo, cfg, frame_rows["demo"]["levels"]),
+           "closest_hit": results["closest_hit"][4], "env": results["env"][3],
+           "mt_vpu": bounds.mtbench_bound("mt", mt_r, vt, vt_words["mt"]),
+           "mt_woop": bounds.mtbench_bound("woop", mt_r, vt,
+                                           vt_words["woop"]),
+           "stall": bounds.stall_bound(64)}
     kern = [{"name": "frame", "route": "cuda",
              "source": "refraction_tpu_torch/csrc/frame.cu",
              "replaces": "refraction_tpu/kernels/framekernel.py:106",
              "launches": launches["frame"], "max_abs_err": frame_err,
-             "ms": frame_ms, "plain_ms": plain_ms},
+             "ms": frame_ms, "plain_ms": plain_ms,
+             "timed": "demo 1024x768 5/2 vs the eager integrator"},
             {"name": "round", "route": "cuda",
              "source": "refraction_tpu_torch/csrc/round.cu",
              "replaces": "refraction_tpu/kernels/megakernel.py:43",
@@ -803,9 +876,18 @@ def main() -> int:
              "max_abs_err": stall_err,
              "ms": stall_t[0], "plain_ms": stall_t[1],
              "timed": "the six variants at n_iter 64, summed"}]
+    for k in kern:
+        # No single PyTorch call computes any of these functions (the Woop
+        # kernel's 48x8 product alone would be one torch.matmul).
+        k.update(bound_ms=bnd[k["name"]]["bound_ms"],
+                 bound_by=bnd[k["name"]]["bound_by"], library_ms=None)
+    frame_cells = {tag: {"ms": r["ms"], "bound_ms": r["bound"]["bound_ms"],
+                         "bound_by": r["bound"]["bound_by"],
+                         "work": r["bound"]["work"]}
+                   for tag, r in frame_rows.items()}
     print(json.dumps({"kernels": kern, "frame_stream_ms": per_frame,
-                      "frame_ms_large": large_ms, "wavefront": wave,
-                      "card": card}))
+                      "frame_ms_large": large_ms, "frame_cells": frame_cells,
+                      "wavefront": wave, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

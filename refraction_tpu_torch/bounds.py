@@ -1,0 +1,176 @@
+"""Roofline bounds of the port's kernels: the least time the card could take
+for the work of one call, the larger of its bytes over the memory rate and
+its operations over the FP32 peak.
+
+Bytes count each input read once and each output written once. Operations
+count what these inputs need (`ops.intersect.traversal_work` for the
+traversal kernels: the box and triangle tests of the rays each call
+traces, whatever the visit order), with the per-test FP32 operation counts
+stated beside each constant. Shading is not counted, so the traversal
+kernels' bounds are lower bounds of a lower bound. Peaks are the H100 SXM
+data sheet's at its 700 W limit: 3.35 TB/s of HBM, 67 TFLOP/s FP32 outside
+the tensor cores (a fused multiply-add counted as two operations; the
+library is built with -fmad=false, so every counted operation is one
+instruction, and the instruction-issue floor is twice the operations
+time).
+
+    python -m refraction_tpu_torch.bounds --scene X.obj --envmap X.hdr \\
+        --width 1920 --height 1080 --bounces 4 [--spp 4] [--device cuda]
+
+prints one JSON line: the frame kernel's bound at that shape and the
+traversal work per bounce level.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from refraction_tpu_torch.camera import orbit_camera
+from refraction_tpu_torch.config import RenderConfig
+from refraction_tpu_torch.ops.intersect import (
+    BOX_TEST_OPS,
+    MT_TEST_OPS,
+    traversal_work,
+)
+from refraction_tpu_torch.render import frame_traversal_work
+from refraction_tpu_torch.run import build_config
+from refraction_tpu_torch.scene import load_scene, scene_from_jax
+from refraction_tpu_torch.timing import card_line, require_device
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations per ray of the env lookup (envmap.cuh rt_env_texel and
+# the weighting): 2 divides, 4 multiplies, 2 adds, 2 clamps of 2, the
+# atan2f and acosf counted as one each, 3 weight multiplies.
+ENV_RAY_OPS = 17
+# Per 8-triangle sub visit of the instruments (csrc/mtbench.cu): MT 53 per
+# triangle (the traversal's 52 plus the det * cull multiply); Woop the
+# 48 x 8 product (8 multiplies and 7 adds per row) plus 13 per triangle.
+MT_VISIT_OPS = 8 * 53
+WOOP_VISIT_OPS = 48 * 15 + 8 * 13
+# Per carry element and iteration of the six stall variants
+# (csrc/stallbench.cu): vecops 128, tree 4, extract 3, while2 4,
+# loads72 144, subplane 36.
+STALL_ITER_OPS = {"vecops": 128, "tree": 4, "extract": 3, "while2": 4,
+                  "loads72": 144, "subplane": 36}
+STATE_ROW_BYTES = 8 * 4  # one lane of the round kernel's (8, W) state
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """{'ops', 'bytes', 'ops_ms', 'bytes_ms', 'bound_ms', 'bound_by'}."""
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"ops": int(ops), "bytes": int(nbytes), "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def traversal_ops(work: dict) -> int:
+    """FP32 operations of summed traversal_work counts."""
+    boxes = work["super_tests"] + work["cluster_tests"] + work["sub_tests"]
+    return BOX_TEST_OPS * boxes + MT_TEST_OPS * work["mt_tests"]
+
+
+def table_bytes(scene) -> int:
+    """Bytes of the traversal's tables (triangles, normals, boxes)."""
+    return sum(int(t.numel()) * t.element_size() for t in (
+        scene.tri_packed, scene.tri_norm_packed, scene.cluster_bounds,
+        scene.sub_bounds, scene.super_bounds))
+
+
+def env_bytes(scene) -> int:
+    return int(scene.envmap.numel()) * 4
+
+
+def _summed(levels: list[dict]) -> dict:
+    return {k: sum(lv[k] for lv in levels) for k in levels[0]}
+
+
+def frame_bound(scene, cfg: RenderConfig, levels: list[dict]) -> dict:
+    """Bound of one frame-kernel launch: the traversal work of the frame's
+    rays (``levels`` from render.frame_traversal_work); bytes are the
+    scalars, the tables, the map and the (H, W, 3) image."""
+    nbytes = ((18 + 2 * cfg.spp) * 4 + table_bytes(scene) + env_bytes(scene)
+              + cfg.width * cfg.height * 3 * 4)
+    out = bound(traversal_ops(_summed(levels)), nbytes)
+    out["work"] = _summed(levels)
+    return out
+
+
+def round_bound(scene, cfg: RenderConfig, levels: list[dict]) -> dict:
+    """Bound of the wavefront's round-kernel launches for one frame (spp 1):
+    per round the traversal work of its live lanes, its (8, W) state read,
+    its (W, 3) radiance and (8, W_out) children written, and the tables and
+    map it reads; summed over the rounds."""
+    n = cfg.width * cfg.height
+    width, nbytes = n, 0
+    for count in range(cfg.max_refract_depth + 1):
+        children = count < cfg.max_refract_depth
+        out_w = (2 * width if children and count < cfg.max_reflect_depth
+                 else width if children else 0)
+        nbytes += (width * STATE_ROW_BYTES + width * 3 * 4
+                   + out_w * STATE_ROW_BYTES + table_bytes(scene)
+                   + env_bytes(scene))
+        width = out_w
+    return bound(traversal_ops(_summed(levels)), nbytes)
+
+
+def closest_hit_bound(scene, o, d, cull, tmin: float, t_hit) -> dict:
+    """Bound of one closest-hit launch: the rays' traversal work on
+    [tmin, t_hit]; bytes are the rays and cull in, (t, idx, normal) out,
+    and the tables."""
+    n = o.shape[0]
+    work = {k: int(v.sum()) for k, v in
+            traversal_work(scene, o, d, tmin, t_hit, cull).items()}
+    out = bound(traversal_ops(work),
+                n * (24 + 4) + n * (4 + 4 + 12) + table_bytes(scene))
+    out["work"] = work
+    return out
+
+
+def env_bound(scene, n: int) -> dict:
+    """Bound of one env launch over n rays: dirs and weights in, (n, 3)
+    out, the whole map read once."""
+    return bound(n * ENV_RAY_OPS, n * (12 + 4 + 12) + env_bytes(scene))
+
+
+def mtbench_bound(kind: str, r: int, v: int, table_words: int) -> dict:
+    """Bound of one instrument launch: v sub visits for each of r rays."""
+    ops = (MT_VISIT_OPS if kind == "mt" else WOOP_VISIT_OPS) * r * v
+    ray_words = 7 if kind == "mt" else 9  # o, d, cull or rhs(8), cull
+    return bound(ops, 4 * (table_words + r * ray_words + 2 * r))
+
+
+def stall_bound(n_iter: int, elems: int = 1024) -> dict:
+    """Bound of the six stall launches at n_iter iterations: the carry and
+    the 1,024-word table in, the carry out, per variant."""
+    ops = sum(STALL_ITER_OPS.values()) * elems * n_iter
+    return bound(ops, len(STALL_ITER_OPS) * 4 * (3 * elems))
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    for flag in ("--scene", "--envmap"):
+        p.add_argument(flag)
+    for flag in ("--width", "--height", "--bounces", "--spp"):
+        p.add_argument(flag, type=int)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    device = require_device(args.device)
+    cfg = build_config(args)
+    scene_np, meta = load_scene(cfg)
+    scene = scene_from_jax(scene_np, device)
+    levels = frame_traversal_work(scene, cfg, orbit_camera(0.01, cfg), device)
+    out = frame_bound(scene, cfg, levels)
+    out.update(levels=levels, tris=meta.num_real_tris,
+               clusters=scene.num_clusters, supers=scene.num_supers,
+               shape=[cfg.width, cfg.height, cfg.max_refract_depth, cfg.spp],
+               card=card_line(device))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

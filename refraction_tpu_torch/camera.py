@@ -1,17 +1,103 @@
-"""Primary ray generation in PyTorch: port of
-`refraction_tpu.camera.generate_rays` (RayTracing.hlsl:27-40).
+"""Camera: the reference's matrix chain (numpy) and primary ray generation
+(PyTorch). Copy of `refraction_tpu.camera` (perspective_fov_lh,
+translation, look_at_lh, CameraFrame, orbit_camera) plus the port of its
+``generate_rays``.
 
-The camera matrices stay numpy: ``orbit_camera`` and ``CameraFrame`` are
-imported from the JAX package, which builds them without JAX (including
-the reference's literal aspect 1.333 at exactly 1024x768).
+Reproduces RefractionDemo.cpp:559-567 + RayTracing.hlsl:27-40 including the
+quirks that must be kept for pixel parity:
+
+- ``proj * world * view`` composition order (RefractionDemo.cpp:563) —
+  DirectXMath ``operator*`` is a plain row-major matrix product, so the
+  composite is ``A = proj @ world @ view`` of the row-major arrays.
+- The C++ uploads ``XMMATRIX`` memory directly (copy_to_buffer,
+  RefractionDemo.cpp:566) with no transpose, while HLSL's default cbuffer
+  packing is **column-major**; combined with HLSL ``mul(rowvec, M)``
+  (RayTracing.hlsl:35) the net effect is a standard column-vector transform
+  by the row-major inverse:  ``R = inv(A) @ [sx, sy, 0, 1]``.
+- ``dir = normalize(R.xyz)`` with **no w-divide** (RayTracing.hlsl:39).
+- The LookAt eye sits on a *unit* circle at angle ``-theta`` while the ray
+  origin is the camera location on a radius-5 circle at ``+theta``
+  (RefractionDemo.cpp:560-562) — reproduced.
+- fov uses pi ~= 3.1415 (RefractionDemo.cpp:559), and the aspect is the
+  reference's literal 1.333 at exactly 1024x768 (config.RenderConfig).
+
+The matrix builders follow DirectXMath row-major layouts exactly
+(XMMatrixPerspectiveFovLH / XMMatrixTranslationFromVector / XMMatrixLookAtLH).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from refraction_tpu.camera import CameraFrame, orbit_camera  # noqa: F401
+from refraction_tpu_torch.config import RenderConfig
+
+
+def perspective_fov_lh(fov_y: float, aspect: float, zn: float, zf: float) -> np.ndarray:
+    """XMMatrixPerspectiveFovLH, row-major memory layout."""
+    h = np.cos(fov_y / 2) / np.sin(fov_y / 2)
+    w = h / aspect
+    rng = zf / (zf - zn)
+    m = np.zeros((4, 4), np.float64)
+    m[0, 0] = w
+    m[1, 1] = h
+    m[2, 2] = rng
+    m[2, 3] = 1.0
+    m[3, 2] = -rng * zn
+    return m
+
+
+def translation(v: np.ndarray) -> np.ndarray:
+    """XMMatrixTranslationFromVector (xyz used, w ignored)."""
+    m = np.eye(4, dtype=np.float64)
+    m[3, :3] = v[:3]
+    return m
+
+
+def look_at_lh(eye: np.ndarray, at: np.ndarray, up: np.ndarray) -> np.ndarray:
+    """XMMatrixLookAtLH, row-major memory layout."""
+    eye = np.asarray(eye, np.float64)
+    z = np.asarray(at, np.float64) - eye
+    z = z / np.linalg.norm(z)
+    x = np.cross(np.asarray(up, np.float64), z)
+    x = x / np.linalg.norm(x)
+    y = np.cross(z, x)
+    m = np.zeros((4, 4), np.float64)
+    m[0, :3] = [x[0], y[0], z[0]]
+    m[1, :3] = [x[1], y[1], z[1]]
+    m[2, :3] = [x[2], y[2], z[2]]
+    m[3, :3] = [-x @ eye, -y @ eye, -z @ eye]
+    m[3, 3] = 1.0
+    return m
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraFrame:
+    """Per-frame camera state: ray origin + unprojection matrix."""
+
+    origin: np.ndarray    # (3,) float32 — camera_loc.xyz
+    proj_inv: np.ndarray  # (4, 4) float32 — inv(proj @ world @ view)
+
+
+def orbit_camera(angle: float, cfg: RenderConfig) -> CameraFrame:
+    """The reference's orbiting camera at a given angle (RefractionDemo.cpp:559-565)."""
+    proj = perspective_fov_lh(cfg.fov_y_rad, cfg.resolved_aspect, cfg.z_near, cfg.z_far)
+    camera_loc = np.array(
+        [cfg.orbit_radius * np.cos(angle), 0.0, cfg.orbit_radius * np.sin(angle), 1.0]
+    )
+    world = translation(camera_loc)
+    view = look_at_lh(
+        np.array([np.cos(-angle), 0.0, np.sin(-angle)]),
+        np.zeros(3),
+        np.array([0.0, 1.0, 0.0]),
+    )
+    a = proj @ world @ view
+    return CameraFrame(
+        origin=camera_loc[:3].astype(np.float32),
+        proj_inv=np.linalg.inv(a).astype(np.float32),
+    )
 
 
 def generate_rays(frame: CameraFrame, width: int, height: int,

@@ -21,15 +21,30 @@
 // pending sibling, so the stack never holds more than
 // min(max_reflect, max_refract) + 1 rays; the wrapper checks that against
 // RT_MAX_STACK. The result is written straight into the (H, W, 3) image,
-// times 1/spp: no tile order and no padding, which were TPU layout. The
-// shading is shade.cuh's, shared with the round kernel (round.cu).
+// times 1/spp. The shading is shade.cuh's, shared with the round kernel.
 //
-// Bound on the H100: traversal latency and warp divergence (neighbouring
-// pixels' trees differ in depth and visit different boxes), not FLOPs or
-// DRAM bandwidth: the scene tables (~100 KB to ~6 MB) stay in L1/L2, and
-// the image write is 12 bytes per pixel. The first version keeps the
-// design simple: 16x8 pixel blocks so a warp covers a compact 16x2 patch
-// with similar rays; the stack lives in local memory (L1-resident).
+// Bound on the H100 (NVIDIA H100 80GB HBM3, 700 W; bounds.py over the
+// traversal work of the frame's rays): FP32 operations, not bytes. Demo
+// (1,280 tris, 1024x768, 5/2 bounces): 1.85 G operations, 0.028 ms,
+// against 35 MB, 0.010 ms; large (81,920 tris, 1920x1080, 4 bounces):
+// 8.4 G operations, 0.125 ms, against 56 MB, 0.017 ms. The first version
+// ran at 12% and 7% of those bounds: it slab-tested every cluster box of
+// the table for every ray (160 at large) and opened far clusters, with all
+// their subs and triangles, before the near hit could prune them.
+//
+// The design (PERF.md, PR 4, measured step by step): the traversal is
+// traverse_f2b.cuh's, in two instances chosen at launch from the scene.
+// Scenes with super boxes (more than 32 clusters) walk supers, their
+// clusters and their subs near to far, so the nearest hit prunes what
+// lies behind it; smaller scenes walk their boxes in table order, where
+// ordering cost more than it saved. Measured and not kept: tables staged in shared
+// memory (the demo tables fit in L1 already; 50-96 KB of shared memory per
+// block cut the resident warps), a persistent grid pulling 16x2 or 16x8
+// tiles from an atomic counter, and launch bounds that lift the register
+// cap (95 registers without spills ran slower than 56 with 64 B of spills:
+// fewer resident warps). The grid is one 16x8 block per 16x8 pixels, so a
+// warp covers a compact 16x2 patch of similar rays; the stack lives in
+// local memory (L1-resident).
 //
 // Scalar vector layout (as framekernel.py:96-103):
 //   [0:9]   proj_inv rows 0..2 of columns (0, 1, 3)
@@ -42,7 +57,7 @@
 
 #include "envmap.cuh"
 #include "shade.cuh"
-#include "traverse.cuh"
+#include "traverse_f2b.cuh"
 
 #define RT_MAX_STACK 8
 
@@ -51,17 +66,15 @@ struct RtRay {
   int count;
 };
 
-__global__ void __launch_bounds__(128) rt_frame_kernel(
-    const float* __restrict__ sc, const float* __restrict__ tri,
-    const float* __restrict__ norm, const float* __restrict__ clusters,
-    const float* __restrict__ subs, const float* __restrict__ env,
-    float* __restrict__ out, int width, int height, int spp, float inv_spp,
-    int max_refract, int max_reflect, int n_clusters, int cluster_size,
-    int sub_tris, int env_h, int env_w) {
-  const int px = blockIdx.x * blockDim.x + threadIdx.x;
-  const int py = blockIdx.y * blockDim.y + threadIdx.y;
-  if (px >= width || py >= height) return;
-
+// Radiance of one pixel: spp samples of its bounce tree, averaged.
+template <int WALK>
+__device__ __forceinline__ float3 rt_pixel(const RtScene& scene,
+                                           const float* __restrict__ sc,
+                                           const float* __restrict__ env,
+                                           int px, int py, int width,
+                                           int height, int spp, float inv_spp,
+                                           int max_refract, int max_reflect,
+                                           int env_h, int env_w) {
   const float tmin_p = sc[12], tmax_p = sc[13];
   const float tmin_s = sc[14], tmax_s = sc[15];
   const float ior = sc[16], r0 = sc[17];
@@ -70,7 +83,6 @@ __global__ void __launch_bounds__(128) rt_frame_kernel(
 
   RtRay stack[RT_MAX_STACK];
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-
   for (int s = 0; s < spp; ++s) {
     // Raygen (camera.py:98-135): no w-divide, DirectX y flip.
     const float jx = sc[18 + 2 * s], jy = sc[19 + 2 * s];
@@ -88,9 +100,8 @@ __global__ void __launch_bounds__(128) rt_frame_kernel(
       const RtRay r = stack[--sp];
       const bool primary = r.count == 0;
       const bool at_cap = r.count == max_refract;
-      const RtHit h = rt_closest_hit(
-          tri, norm, clusters, subs, n_clusters, cluster_size, sub_tris,
-          r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.cull,
+      const RtHit h = rt_closest_hit<WALK>(
+          scene, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.cull,
           primary ? tmin_p : tmin_s, primary ? tmax_p : tmax_s, at_cap);
       if (h.idx < 0) {
         if (r.w > 0.0f) {  // miss shader (RayTracing.hlsl:127-137)
@@ -121,25 +132,53 @@ __global__ void __launch_bounds__(128) rt_frame_kernel(
       }
     }
   }
+  return make_float3(acc_r * inv_spp, acc_g * inv_spp, acc_b * inv_spp);
+}
+
+template <int WALK>
+__global__ void __launch_bounds__(128) rt_frame_kernel(
+    const float* __restrict__ sc, const float* __restrict__ tri,
+    const float* __restrict__ norm, const float* __restrict__ supers,
+    const float* __restrict__ clusters, const float* __restrict__ subs,
+    const float* __restrict__ env, float* __restrict__ out, int width,
+    int height, int spp, float inv_spp, int max_refract, int max_reflect,
+    int n_supers, int n_clusters, int cluster_size, int sub_tris, int env_h,
+    int env_w) {
+  const int px = blockIdx.x * blockDim.x + threadIdx.x;
+  const int py = blockIdx.y * blockDim.y + threadIdx.y;
+  if (px >= width || py >= height) return;
+  const RtScene scene{supers, clusters, subs, tri, norm, n_supers,
+                      n_clusters, cluster_size / sub_tris, sub_tris};
+  const float3 c = rt_pixel<WALK>(scene, sc, env, px, py, width, height, spp,
+                                  inv_spp, max_refract, max_reflect, env_h,
+                                  env_w);
   float* o = out + 3 * ((size_t)py * width + px);
-  o[0] = acc_r * inv_spp;
-  o[1] = acc_g * inv_spp;
-  o[2] = acc_b * inv_spp;
+  o[0] = c.x;
+  o[1] = c.y;
+  o[2] = c.z;
 }
 
 extern "C" int rt_frame(const float* scalars, const float* tri,
-                        const float* norm, const float* clusters,
-                        const float* subs, const float* env, float* out,
-                        int width, int height, int spp, float inv_spp,
-                        int max_refract, int max_reflect, int n_clusters,
+                        const float* norm, const float* supers,
+                        const float* clusters, const float* subs,
+                        const float* env, float* out, int width, int height,
+                        int spp, float inv_spp, int max_refract,
+                        int max_reflect, int n_supers, int n_clusters,
                         int cluster_size, int sub_tris, int env_h, int env_w,
                         void* stream) {
   const dim3 block(16, 8);
   const dim3 grid((width + block.x - 1) / block.x,
                   (height + block.y - 1) / block.y);
-  rt_frame_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      scalars, tri, norm, clusters, subs, env, out, width, height, spp,
-      inv_spp, max_refract, max_reflect, n_clusters, cluster_size, sub_tris,
-      env_h, env_w);
+#define RT_FRAME_LAUNCH(WALK)                                                 \
+  rt_frame_kernel<WALK><<<grid, block, 0, (cudaStream_t)stream>>>(            \
+      scalars, tri, norm, supers, clusters, subs, env, out, width, height,    \
+      spp, inv_spp, max_refract, max_reflect, n_supers, n_clusters,           \
+      cluster_size, sub_tris, env_h, env_w)
+  if (n_supers > 0) {
+    RT_FRAME_LAUNCH(RT_WALK_SUPERS);
+  } else {
+    RT_FRAME_LAUNCH(RT_WALK_FLAT);
+  }
+#undef RT_FRAME_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -36,25 +36,27 @@
 // lanes are dead, and the round is bound by its state traffic: 32 bytes
 // read and up to 12 + 64 bytes written per lane. This first version is the
 // plain mapping (128-thread blocks, state straight from global memory);
-// compacting live lanes is later work.
+// compacting live lanes is later work. The traversal is traverse_f2b.cuh's,
+// in its flat or supers instance as the scene has super boxes or not.
 
 #include <cuda_runtime.h>
 
 #include "envmap.cuh"
 #include "shade.cuh"
-#include "traverse.cuh"
+#include "traverse_f2b.cuh"
 
 enum RtRoundVariant { RT_ROUND_FULL = 0, RT_ROUND_CHILDREN = 1,
                       RT_ROUND_RADIANCE = 2 };
 
-template <int V>
+template <int V, int WALK>
 __global__ void __launch_bounds__(128) rt_round_kernel(
     float tmin, float tmax, float ior, float r0,
     const float* __restrict__ tri, const float* __restrict__ norm,
-    const float* __restrict__ clusters, const float* __restrict__ subs,
-    const float* __restrict__ env, const float* __restrict__ state, int w,
-    float* __restrict__ rad, float* __restrict__ next, int n_clusters,
-    int cluster_size, int sub_tris, int env_h, int env_w) {
+    const float* __restrict__ supers, const float* __restrict__ clusters,
+    const float* __restrict__ subs, const float* __restrict__ env,
+    const float* __restrict__ state, int w, float* __restrict__ rad,
+    float* __restrict__ next, int n_supers, int n_clusters, int cluster_size,
+    int sub_tris, int env_h, int env_w) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= w) return;
   const size_t W = (size_t)w;
@@ -64,10 +66,10 @@ __global__ void __launch_bounds__(128) rt_round_kernel(
   const float cull = state[6 * W + i], wgt = state[7 * W + i];
 
   // Dead lanes (cull == 0) come back as a miss with idx -1.
-  const RtHit h = rt_closest_hit(tri, norm, clusters, subs, n_clusters,
-                                 cluster_size, sub_tris, ox, oy, oz, dx, dy,
-                                 dz, cull, tmin, tmax,
-                                 V == RT_ROUND_RADIANCE);
+  const RtScene scene{supers, clusters, subs, tri, norm, n_supers,
+                      n_clusters, cluster_size / sub_tris, sub_tris};
+  const RtHit h = rt_closest_hit<WALK>(scene, ox, oy, oz, dx, dy, dz, cull,
+                                       tmin, tmax, V == RT_ROUND_RADIANCE);
   const bool hit = h.idx >= 0;
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
   if (cull != 0.0f && !hit && wgt > 0.0f) {  // miss shader (hlsl:127-137)
@@ -115,9 +117,10 @@ __global__ void __launch_bounds__(128) rt_round_kernel(
 // only, unused (may be null) for radiance only. Returns a cudaError_t.
 extern "C" int rt_round(float tmin, float tmax, float ior, float r0,
                         const float* tri, const float* norm,
-                        const float* clusters, const float* subs,
-                        const float* env, const float* state, int w,
-                        float* rad, float* next, int variant, int n_clusters,
+                        const float* supers, const float* clusters,
+                        const float* subs, const float* env,
+                        const float* state, int w, float* rad, float* next,
+                        int variant, int n_supers, int n_clusters,
                         int cluster_size, int sub_tris, int env_h, int env_w,
                         void* stream) {
   if (w <= 0) return 0;
@@ -125,9 +128,15 @@ extern "C" int rt_round(float tmin, float tmax, float ior, float r0,
   const int grid = (w + block - 1) / block;
   cudaStream_t s = (cudaStream_t)stream;
 #define RT_ROUND_LAUNCH(V)                                                  \
-  rt_round_kernel<V><<<grid, block, 0, s>>>(                                \
-      tmin, tmax, ior, r0, tri, norm, clusters, subs, env, state, w, rad,   \
-      next, n_clusters, cluster_size, sub_tris, env_h, env_w)
+  if (n_supers > 0)                                                         \
+    RT_ROUND_LAUNCH_WALK(V, RT_WALK_SUPERS);                                \
+  else                                                                      \
+    RT_ROUND_LAUNCH_WALK(V, RT_WALK_FLAT)
+#define RT_ROUND_LAUNCH_WALK(V, WALK)                                       \
+  rt_round_kernel<V, WALK><<<grid, block, 0, s>>>(                          \
+      tmin, tmax, ior, r0, tri, norm, supers, clusters, subs, env, state,   \
+      w, rad, next, n_supers, n_clusters, cluster_size, sub_tris, env_h,     \
+      env_w)
   switch (variant) {
     case RT_ROUND_FULL: RT_ROUND_LAUNCH(RT_ROUND_FULL); break;
     case RT_ROUND_CHILDREN: RT_ROUND_LAUNCH(RT_ROUND_CHILDREN); break;
@@ -135,5 +144,6 @@ extern "C" int rt_round(float tmin, float tmax, float ior, float r0,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef RT_ROUND_LAUNCH
+#undef RT_ROUND_LAUNCH_WALK
   return (int)cudaGetLastError();
 }

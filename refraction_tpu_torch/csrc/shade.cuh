@@ -19,7 +19,7 @@
 
 #include <cuda_runtime.h>
 
-#include "traverse.cuh"
+#include "traverse_f2b.cuh"
 
 struct RtSurface {
   float hx, hy, hz;  // hit point o + t d

@@ -1,6 +1,7 @@
 """Procedural scenes on disk, for driving the CLI without the reference assets.
 
-Meshes and env maps come from `refraction_tpu.io.primitives` (numpy); this
+Meshes and env maps come from `io.primitives` (numpy, e.g.
+``make_icosphere``, ``make_gradient_envmap``); this
 module writes them in the formats the CLI reads: a Wavefront OBJ with
 ``v``/``vt``/``vn``/``f v/vt/vn`` lines (the reference's parser needs all
 three indices per corner) and a Radiance ``.hdr``.
@@ -12,13 +13,8 @@ import os
 
 import numpy as np
 
-from refraction_tpu.io.hdr import write_hdr
-from refraction_tpu.io.objmesh import MeshData
-from refraction_tpu.io.primitives import (  # noqa: F401
-    make_cube,
-    make_gradient_envmap,
-    make_icosphere,
-)
+from refraction_tpu_torch.io.hdr import write_hdr
+from refraction_tpu_torch.io.objmesh import MeshData
 
 
 def write_obj(path: str, mesh: MeshData) -> None:

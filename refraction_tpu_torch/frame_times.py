@@ -1,0 +1,139 @@
+"""Frame-kernel device time and the CLI loop's per-step breakdown, on CUDA.
+
+    python -m refraction_tpu_torch.frame_times --scene X.obj --envmap X.hdr \\
+        --width 1024 --height 768 --bounces 5 [--spp 4] [--label NAME]
+
+prints one JSON line for the package it imports:
+
+- ``kernel_ms``: mean ms per `fused_radiance` launch over 20 back-to-back
+  launches (CUDA events), for each of 5 rounds after a warm-up, and their
+  median;
+- ``loop``: medians over 30 frames of the CLI loop (after 3 warm-up
+  frames) of each step — ``orbit_camera`` and ``build_scalars`` on the host
+  clock; the frame kernel, and ``to_u8`` with its copy to the host, on CUDA
+  events; the loop frame (host clock, camera to the copy) — the loop
+  frame's p10 and p90, and the device idle share, 1 - (kernel + copy) /
+  loop frame. The PNG write is timed apart (median of 5 writes of the last
+  frame), since the CLI's per-frame write would leave the card idle for
+  tens of ms between frames;
+- the card line (nvidia-smi name and power limit).
+
+It uses only the package's long-standing entry points (``scene.load_scene``,
+``scene.scene_from_jax``, ``kernels.framekernel.build_scalars`` /
+``fused_radiance``, ``run.to_u8`` / ``write_png``), so the same file,
+copied beside another checkout of the package, times that checkout's
+kernel: comparisons run both in one call, in turns. ``--device cuda``
+only: there is no CPU path.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from refraction_tpu_torch.camera import orbit_camera
+from refraction_tpu_torch.kernels.framekernel import build_scalars, fused_radiance
+from refraction_tpu_torch.render import sample_offsets
+from refraction_tpu_torch.run import build_config, to_u8, write_png
+from refraction_tpu_torch.scene import load_scene, scene_from_jax
+from refraction_tpu_torch.timing import card_line, require_device
+
+ROUNDS, LAUNCHES = 5, 20
+WARM_FRAMES, FRAMES = 3, 30
+
+
+def _pct(xs, q):
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def kernel_ms(scene, cfg, scalars) -> list[float]:
+    """Mean ms per launch of each of ROUNDS rounds of LAUNCHES launches."""
+    fused_radiance(scene, scalars, cfg)
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(ROUNDS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(LAUNCHES):
+            fused_radiance(scene, scalars, cfg)
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1) / LAUNCHES)
+    return out
+
+
+def loop_breakdown(scene, cfg, device, png_dir: str) -> dict:
+    """Per-step medians of the CLI's frame loop (run.main without logging)."""
+    offsets = sample_offsets(cfg.spp)
+    rows = []
+    angle = 0.01
+    for i in range(WARM_FRAMES + FRAMES):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        t0 = time.perf_counter()
+        frame = orbit_camera(angle, cfg)
+        t1 = time.perf_counter()
+        scalars = build_scalars(frame, cfg, offsets, device)
+        t2 = time.perf_counter()
+        ev[0].record()
+        img = fused_radiance(scene, scalars, cfg)
+        ev[1].record()
+        u8 = to_u8(img).cpu().numpy()
+        ev[2].record()
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        if i >= WARM_FRAMES:
+            k, c = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+            loop = (t3 - t0) * 1e3
+            rows.append({"orbit_camera": (t1 - t0) * 1e3,
+                         "scalar_upload": (t2 - t1) * 1e3,
+                         "frame_kernel": k, "u8_copy": c, "loop_frame": loop,
+                         "idle": 1.0 - (k + c) / loop})
+        angle += cfg.orbit_speed
+    out = {key: statistics.median(r[key] for r in rows) for key in rows[0]}
+    loops = [r["loop_frame"] for r in rows]
+    out.update(loop_p10=_pct(loops, 10), loop_p90=_pct(loops, 90))
+    writes = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        write_png(os.path.join(png_dir, "frame.png"), u8)
+        writes.append((time.perf_counter() - t0) * 1e3)
+    out["png_write"] = statistics.median(writes)
+    return out
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    for flag in ("--scene", "--envmap"):
+        p.add_argument(flag)
+    for flag in ("--width", "--height", "--bounces", "--spp"):
+        p.add_argument(flag, type=int)
+    p.add_argument("--label", default="", help="name printed with the result")
+    args = p.parse_args(argv)
+    device = require_device("cuda")
+    cfg = build_config(args)
+    scene = scene_from_jax(load_scene(cfg)[0], device)
+    scalars = build_scalars(orbit_camera(0.01, cfg), cfg,
+                            sample_offsets(cfg.spp), device)
+    ms = kernel_ms(scene, cfg, scalars)
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = loop_breakdown(scene, cfg, device, tmp)
+    print(json.dumps({"label": args.label,
+                      "shape": [cfg.width, cfg.height, cfg.max_refract_depth,
+                                cfg.spp],
+                      "kernel_ms": ms, "kernel_ms_median": statistics.median(ms),
+                      "loop": loop, "card": card_line(device)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -25,7 +25,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from refraction_tpu.config import RenderConfig
+from refraction_tpu_torch.config import RenderConfig
 from refraction_tpu_torch.camera import CameraFrame, generate_rays
 from refraction_tpu_torch.kernels.megakernel import STATE_ROWS, mega_round
 from refraction_tpu_torch.ops.intersect import interpolate_normal, recompute_uv

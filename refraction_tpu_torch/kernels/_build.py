@@ -1,6 +1,7 @@
 """Build the CUDA sources in ``csrc/`` at first use and load them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds). The library lands in ``refraction_tpu_torch/_build/`` under a
 name that carries a hash of the sources and flags, so an edit rebuilds
@@ -26,9 +27,9 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v")
 _DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 _P = ctypes.c_void_p
@@ -36,22 +37,23 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes. Every entry returns a cudaError_t.
 SIGNATURES = {
-    # tri, norm, clusters, subs, origins, dirs, cull, n, tmin, tmax,
-    # n_clusters, cluster_size, sub_tris, t_out, idx_out, n_out, stream
-    "rt_closest_hit": [_P, _P, _P, _P, _P, _P, _P, _I, _F, _F,
-                       _I, _I, _I, _P, _P, _P, _P],
+    # tri, norm, supers, clusters, subs, origins, dirs, cull, n, tmin,
+    # tmax, n_supers, n_clusters, cluster_size, sub_tris, t_out, idx_out,
+    # n_out, stream
+    "rt_closest_hit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F,
+                       _I, _I, _I, _I, _P, _P, _P, _P],
     # env, env_h, env_w, dirs, weight, n, out, stream
     "rt_env": [_P, _I, _I, _P, _P, _I, _P, _P],
-    # scalars, tri, norm, clusters, subs, env, out, width, height, spp,
-    # inv_spp, max_refract, max_reflect, n_clusters, cluster_size,
-    # sub_tris, env_h, env_w, stream
-    "rt_frame": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
-                 _I, _I, _I, _I, _I, _P],
-    # tmin, tmax, ior, r0, tri, norm, clusters, subs, env, state, w, rad,
-    # next, variant, n_clusters, cluster_size, sub_tris, env_h, env_w,
-    # stream
-    "rt_round": [_F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I,
-                 _I, _I, _I, _I, _I, _P],
+    # scalars, tri, norm, supers, clusters, subs, env, out, width, height,
+    # spp, inv_spp, max_refract, max_reflect, n_supers, n_clusters,
+    # cluster_size, sub_tris, env_h, env_w, stream
+    "rt_frame": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
+                 _I, _I, _I, _I, _I, _I, _P],
+    # tmin, tmax, ior, r0, tri, norm, supers, clusters, subs, env, state,
+    # w, rad, next, variant, n_supers, n_clusters, cluster_size, sub_tris,
+    # env_h, env_w, stream
+    "rt_round": [_F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+                 _I, _I, _I, _I, _I, _I, _I, _P],
     # tri, o, d, cull, r, v, t_out, i_out, stream
     "rt_mt_visits": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
     # wmat, rhs, cull, r, v, t_out, i_out, stream
@@ -116,16 +118,37 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
+    objs = [f"{tmp}.{os.path.basename(c)}.o" for c in cu]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, c] for o, c in zip(objs, cu)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False,
-                          timeout=600)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            logs.append(proc.communicate(timeout=600)[0])
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}"
+                    f"\n{logs[-1]}")
+        link = [nvcc, *ARCH, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True,
+                              check=False, timeout=600)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}): "
+                               f"{' '.join(link)}\n{logs[-1]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{BuildInfo.log}")
+    BuildInfo.log = "".join(logs)
     os.replace(tmp, out)
     return out
 

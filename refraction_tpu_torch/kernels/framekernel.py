@@ -7,9 +7,11 @@ kernel launch for CUDA tensors; for CPU tensors it takes the plain version,
 ``fused_radiance_plain``, which is the eager wavefront integrator
 (integrator.render_pixels over the brute-force backend) fed the same rays.
 
-The front-to-back cluster permutation of the TPU path
-(``front_to_back_scene``) is not ported: the CUDA traversal scans the
-cluster table in its build order, so winner indices need no remapping.
+The TPU path's front-to-back cluster permutation (``front_to_back_scene``)
+becomes a per-ray near-to-far walk inside the kernel over the scene's
+super and cluster boxes (csrc/traverse_f2b.cuh), so winner indices need
+no remapping. The kernel has two instances, chosen at launch from the
+scene: `walk_of` names the one a scene takes. A launch that fails raises.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from refraction_tpu_torch.camera import CameraFrame
-from refraction_tpu.config import RenderConfig
+from refraction_tpu_torch.config import RenderConfig
 from refraction_tpu_torch.integrator import render_image
 from refraction_tpu_torch.kernels._build import check, library
 from refraction_tpu_torch.kernels.envmap import (
@@ -90,6 +92,13 @@ def _check_frame_args(scene, scalars, cfg):
     check_envmap(scene, dev)
 
 
+def walk_of(scene) -> str:
+    """The traversal instance the CUDA kernels take for ``scene``:
+    ``"supers"`` (super boxes, walked near to far) or ``"flat"`` (at most
+    32 clusters, in table order); traverse_f2b.cuh RtWalk."""
+    return "supers" if scene.num_supers > 0 else "flat"
+
+
 def fused_radiance(scene, scalars: torch.Tensor,
                    cfg: RenderConfig) -> torch.Tensor:
     """(scene, scalar vector, cfg) -> (H, W, 3) float32 linear radiance.
@@ -107,10 +116,11 @@ def fused_radiance(scene, scalars: torch.Tensor,
                       device=scalars.device)
     err = library().rt_frame(
         scalars.data_ptr(), scene.tri_packed.data_ptr(),
-        scene.tri_norm_packed.data_ptr(), scene.cluster_bounds.data_ptr(),
-        scene.sub_bounds.data_ptr(), scene.envmap.data_ptr(), out.data_ptr(),
-        cfg.width, cfg.height, cfg.spp, float(np.float32(1.0 / cfg.spp)),
-        cfg.max_refract_depth, cfg.max_reflect_depth, scene.num_clusters,
+        scene.tri_norm_packed.data_ptr(), scene.super_bounds.data_ptr(),
+        scene.cluster_bounds.data_ptr(), scene.sub_bounds.data_ptr(),
+        scene.envmap.data_ptr(), out.data_ptr(), cfg.width, cfg.height,
+        cfg.spp, float(np.float32(1.0 / cfg.spp)), cfg.max_refract_depth,
+        cfg.max_reflect_depth, scene.num_supers, scene.num_clusters,
         scene.cluster_size, scene.sub_tris, scene.envmap.shape[0],
         scene.envmap.shape[1],
         torch.cuda.current_stream(scalars.device).cuda_stream)

@@ -1,5 +1,5 @@
 """Closest-hit kernel wrapper (``csrc/closest_hit.cu`` around
-``csrc/traverse.cuh``): port of `refraction_tpu.kernels.intersect_pallas`
+``csrc/traverse_f2b.cuh``): port of `refraction_tpu.kernels.intersect_pallas`
 ``pallas_intersect`` / ``_pallas_closest``.
 
 ``closest_hit`` launches the kernel for CUDA tensors and takes the plain
@@ -19,6 +19,7 @@ from refraction_tpu_torch.ops.intersect import (
     recompute_uv,
 )
 from refraction_tpu_torch.ops.shade import f32
+from refraction_tpu_torch.scene import SUPER_CLUSTERS
 
 
 def cull_code(want_front: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
@@ -32,9 +33,12 @@ def cull_code(want_front: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
 
 def check_scene_tables(scene, device: torch.device) -> None:
     """The traversal's tables: float32, contiguous, on ``device``, and
-    shaped as cluster and sub boxes of whole triangle blocks."""
+    shaped as super, cluster and sub boxes of whole triangle blocks."""
     t = scene.num_tris
     shapes = {"tri_packed": (t, 9), "tri_norm_packed": (t, 9),
+              "super_bounds": (-(-scene.num_clusters // SUPER_CLUSTERS)
+                               if scene.num_clusters > SUPER_CLUSTERS else 0,
+                               6),
               "cluster_bounds": (scene.num_clusters, 6),
               "sub_bounds": (t // scene.sub_tris, 6)}
     for name, shape in shapes.items():
@@ -98,10 +102,11 @@ def closest_hit(scene, origins, dirs, cull, tmin: float, tmax: float):
     lib = library()
     err = lib.rt_closest_hit(
         scene.tri_packed.data_ptr(), scene.tri_norm_packed.data_ptr(),
-        scene.cluster_bounds.data_ptr(), scene.sub_bounds.data_ptr(),
-        origins.data_ptr(), dirs.data_ptr(), cull.data_ptr(), n,
-        f32(tmin), f32(tmax), scene.num_clusters, scene.cluster_size,
-        scene.sub_tris, t.data_ptr(), idx.data_ptr(), normal.data_ptr(),
+        scene.super_bounds.data_ptr(), scene.cluster_bounds.data_ptr(),
+        scene.sub_bounds.data_ptr(), origins.data_ptr(), dirs.data_ptr(),
+        cull.data_ptr(), n, f32(tmin), f32(tmax), scene.num_supers,
+        scene.num_clusters, scene.cluster_size, scene.sub_tris,
+        t.data_ptr(), idx.data_ptr(), normal.data_ptr(),
         torch.cuda.current_stream(origins.device).cuda_stream)
     check(err, "rt_closest_hit")
     closest_hit.launches += 1

@@ -143,10 +143,12 @@ def mega_round(scene, state: torch.Tensor, limits: Sequence[float],
     env = scene.envmap
     err = library().rt_round(
         tmin, tmax, ior, r0, scene.tri_packed.data_ptr(),
-        scene.tri_norm_packed.data_ptr(), scene.cluster_bounds.data_ptr(),
-        scene.sub_bounds.data_ptr(), env.data_ptr(), state.data_ptr(), w,
-        rad.data_ptr(), None if children is None else children.data_ptr(),
-        variant, scene.num_clusters, scene.cluster_size, scene.sub_tris,
+        scene.tri_norm_packed.data_ptr(), scene.super_bounds.data_ptr(),
+        scene.cluster_bounds.data_ptr(), scene.sub_bounds.data_ptr(),
+        env.data_ptr(), state.data_ptr(), w, rad.data_ptr(),
+        None if children is None else children.data_ptr(), variant,
+        scene.num_supers, scene.num_clusters, scene.cluster_size,
+        scene.sub_tris,
         env.shape[0], env.shape[1],
         torch.cuda.current_stream(dev).cuda_stream)
     check(err, "rt_round")

@@ -21,10 +21,25 @@ from __future__ import annotations
 import torch
 
 from refraction_tpu_torch.ops.shade import dot3, f32
+from refraction_tpu_torch.scene import SUPER_CLUSTERS
 
 # Elements of one (chunk, T) temporary; the chunk of rays follows from T.
 _CHUNK_ELEMS = 2 ** 23
 _BIG = f32(3.0e38)
+
+# FP32 operations of one test, counted from the CUDA traversal
+# (csrc/traverse_f2b.cuh; the library is built with -fmad=false, so each
+# is one instruction; a divide counts as one):
+#   box slab test (rt_overlaps, traverse_f2b.cuh:90-100): 6 subtracts,
+#     6 multiplies, 6 per-axis min/max, 3 max + 3 min for enter/leave,
+#     1 compare = 25;
+#   Möller–Trumbore (traverse_f2b.cuh:170-186): pvec 9, det 5, cull
+#     compare 1, 1 divide, tvec 3, u 6, qvec 9, v 6, t 6, 5 compares +
+#     1 add = 52 (the tie-break compare of equal t is not counted).
+BOX_TEST_OPS = 25
+MT_TEST_OPS = 52
+# Rays per chunk of traversal_work (bounds its pair temporaries).
+_WORK_CHUNK = 2 ** 15
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -107,3 +122,81 @@ def interpolate_normal(tri_norm_packed, idx, u, v):
     rows = tri_norm_packed[idx.to(torch.int64)]
     return (rows[:, 0:3] + u[:, None] * rows[:, 3:6]
             + v[:, None] * rows[:, 6:9])
+
+
+def _safe_inv(d: torch.Tensor) -> torch.Tensor:
+    """rt_safe_inv: 1 / d with |d| clamped to 1e-30, sign kept."""
+    mag = torch.clamp_min(d.abs(), 1e-30)
+    one = torch.ones_like(d)
+    return torch.where(d < 0, -one / mag, one / mag)
+
+
+def _slab(box: torch.Tensor, o: torch.Tensor, inv: torch.Tensor,
+          tmin: torch.Tensor, tmax: torch.Tensor) -> torch.Tensor:
+    """rt_slab on paired rows: box (P, 6) [lo | hi], o / inv (P, 3),
+    tmin / tmax (P,): inclusive overlap on [tmin, tmax]."""
+    a = (box[:, :3] - o) * inv
+    b = (box[:, 3:] - o) * inv
+    enter = torch.maximum(torch.minimum(a, b).amax(dim=1), tmin)
+    leave = torch.minimum(torch.maximum(a, b).amin(dim=1), tmax)
+    return enter <= leave
+
+
+def _overlapping(boxes, rays, cand_ray, cand_box):
+    """(ray, box) candidate pairs -> the pairs whose box the ray overlaps."""
+    o, inv, tmin, tmax = rays
+    hit = _slab(boxes[cand_box], o[cand_ray], inv[cand_ray], tmin[cand_ray],
+                tmax[cand_ray])
+    return cand_ray[hit], cand_box[hit]
+
+
+def traversal_work(scene, o: torch.Tensor, d: torch.Tensor, tmin,
+                   t_hit: torch.Tensor, cull: torch.Tensor) -> dict:
+    """The box and triangle tests N rays need under the scene's hierarchy,
+    whatever the visit order: per ray (N,) int64 counts
+
+    - ``super_tests``: every super box (scenes with supers), else 0;
+    - ``cluster_tests``: the clusters of the supers the ray overlaps on
+      ``[tmin, t_hit]``, or every cluster when there are no supers;
+    - ``sub_tests``: the sub boxes of the clusters it overlaps there;
+    - ``mt_tests``: the triangles of the subs it overlaps there.
+
+    ``t_hit`` is the ray's closest hit t (``tmax`` for a miss), ``tmin`` a
+    float or (N,) tensor, ``cull`` the traversal's operand (0: a dead ray,
+    no work). Overlap is the traversal's inclusive slab test (`_slab`).
+    Times BOX_TEST_OPS and MT_TEST_OPS, the counts give the FP32 work of a
+    frame (render.frame_traversal_work)."""
+    n, dev = o.shape[0], o.device
+    out = {k: torch.zeros(n, dtype=torch.int64, device=dev)
+           for k in ("super_tests", "cluster_tests", "sub_tests", "mt_tests")}
+    tmin = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(n)
+    t_hit = t_hit.to(torch.float32)
+    inv_all = _safe_inv(d)
+    n_sup, n_cl = scene.num_supers, scene.num_clusters
+    spc = scene.cluster_size // scene.sub_tris
+    cl_of_super = torch.arange(n_cl, device=dev) // SUPER_CLUSTERS
+    super_size = torch.bincount(cl_of_super, minlength=max(n_sup, 1))
+    for s in range(0, n, _WORK_CHUNK):
+        live = torch.nonzero(cull[s:s + _WORK_CHUNK] != 0).squeeze(1) + s
+        if live.numel() == 0:
+            continue
+        rays = (o[live], inv_all[live], tmin[live], t_hit[live])
+        local = torch.arange(live.numel(), device=dev)
+        if n_sup:
+            out["super_tests"][live] = n_sup
+            r, b = torch.cartesian_prod(local, torch.arange(n_sup, device=dev)).T
+            r, b = _overlapping(scene.super_bounds, rays, r, b)
+            out["cluster_tests"].index_add_(0, live[r], super_size[b])
+            cand = torch.nonzero(b[:, None] == cl_of_super[None, :])
+            r, c = r[cand[:, 0]], cand[:, 1]
+        else:
+            out["cluster_tests"][live] = n_cl
+            r, c = torch.cartesian_prod(local, torch.arange(n_cl, device=dev)).T
+        r, c = _overlapping(scene.cluster_bounds, rays, r, c)
+        out["sub_tests"].index_add_(0, live[r], torch.full_like(r, spc))
+        r = r.repeat_interleave(spc)
+        sub = (c[:, None] * spc + torch.arange(spc, device=dev)).reshape(-1)
+        r, sub = _overlapping(scene.sub_bounds, rays, r, sub)
+        out["mt_tests"].index_add_(0, live[r],
+                                   torch.full_like(r, scene.sub_tris))
+    return out

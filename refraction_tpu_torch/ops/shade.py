@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from refraction_tpu.config import REF_PI_ENVMAP
+from refraction_tpu_torch.config import REF_PI_ENVMAP
 
 
 def f32(x: float) -> float:

@@ -22,7 +22,7 @@ import argparse
 
 import torch
 
-from refraction_tpu.config import RenderConfig
+from refraction_tpu_torch.config import RenderConfig
 from refraction_tpu_torch.camera import CameraFrame, generate_rays, orbit_camera
 from refraction_tpu_torch.integrator import wavefront_rounds
 from refraction_tpu_torch.run import build_config

@@ -22,11 +22,17 @@ from typing import Callable
 import numpy as np
 import torch
 
-from refraction_tpu.config import RenderConfig
+from refraction_tpu_torch.config import RenderConfig
 from refraction_tpu_torch.camera import CameraFrame, generate_rays, orbit_camera
-from refraction_tpu_torch.integrator import render_image, render_pixels_mega
+from refraction_tpu_torch.integrator import (
+    render_image,
+    render_pixels,
+    render_pixels_mega,
+)
 from refraction_tpu_torch.kernels.framekernel import build_scalars, fused_radiance
+from refraction_tpu_torch.kernels.intersect import cull_code
 from refraction_tpu_torch.ops.backends import get_backend
+from refraction_tpu_torch.ops.intersect import traversal_work
 from refraction_tpu_torch.scene import TorchScene
 
 
@@ -113,6 +119,41 @@ def count_live_rays(scene: TorchScene, cfg: RenderConfig, frame: CameraFrame,
         _, stats = render_pixels_mega(scene, o, d, cfg, collect_stats=True)
         total = total + stats["rays_traced"]
     return int(total)
+
+
+def frame_traversal_work(scene: TorchScene, cfg: RenderConfig,
+                         frame: CameraFrame, device: torch.device | str,
+                         ) -> list[dict]:
+    """The traversal work of one frame, per bounce level: a list of dicts
+    of summed `ops.intersect.traversal_work` counts (``super_tests``,
+    ``cluster_tests``, ``sub_tests``, ``mt_tests``) and ``rays`` (live
+    rays), over every sample's rays.
+
+    The rays, their intervals and their closest hits come from the eager
+    integrator (`integrator.render_pixels`) over the closest-hit kernel on
+    CUDA (``cuda`` backend), the brute force on the CPU; the depth-cap
+    level counts a closest hit too. Shading is not counted."""
+    be = get_backend("cuda" if torch.device(device).type == "cuda" else "torch")
+    per_sample: list[list[dict]] = []  # [sample][level] -> summed counts
+
+    def recording(scene_, o, d, want_front, alive, tmin, tmax):
+        res = be.intersect(scene_, o, d, want_front, alive, tmin, tmax)
+        hit, t = res[0] & alive, res[1]
+        t_hit = torch.where(hit, t, torch.full_like(t, tmax))
+        work = traversal_work(scene_, o, d, tmin, t_hit,
+                              cull_code(want_front, alive))
+        sums = {key: int(v.sum()) for key, v in work.items()}
+        sums["rays"] = int(alive.sum())
+        per_sample[-1].append(sums)
+        return res
+
+    for off in sample_offsets(cfg.spp):
+        per_sample.append([])
+        o, d = generate_rays(frame, cfg.width, cfg.height, device, jitter=off)
+        render_pixels(scene, o, d, cfg, recording, be.env_contribution)
+    levels = [{key: sum(s[k][key] for s in per_sample) for key in lv}
+              for k, lv in enumerate(per_sample[0])]
+    return levels
 
 
 def render_heatmap(scene: TorchScene, cfg: RenderConfig, frame: CameraFrame,

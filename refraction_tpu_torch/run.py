@@ -7,7 +7,7 @@ Each frame is one frame-kernel launch (``--device cuda``); on
 There is no fallback: ``--device cuda`` without CUDA is an error.
 
 - ``--instances SPEC.json`` renders N placed meshes (TLAS with N
-  instances, `refraction_tpu.scene.load_instanced`); mask-0 instances are
+  instances, `scene.load_instanced`); mask-0 instances are
   dropped at build, and the frame kernel serves the reference's constant
   0xff ray mask.
 - ``--accumulate`` averages the frames into one image and saves the
@@ -40,10 +40,10 @@ import os
 import numpy as np
 import torch
 
-from refraction_tpu.config import DEFAULT_ASSET_DIR, RenderConfig
-from refraction_tpu.io.png import write_png
-from refraction_tpu.utils.stats import FrameStats, log, setup_logging
 from refraction_tpu_torch.camera import orbit_camera
+from refraction_tpu_torch.config import DEFAULT_ASSET_DIR, RenderConfig
+from refraction_tpu_torch.io.mtl import ior_for_scene
+from refraction_tpu_torch.io.png import write_png
 from refraction_tpu_torch.render import (
     Accumulator,
     heatmap_to_rgb,
@@ -52,6 +52,8 @@ from refraction_tpu_torch.render import (
 )
 from refraction_tpu_torch.scene import load_instanced, load_scene, scene_from_jax
 from refraction_tpu_torch.timing import require_device
+from refraction_tpu_torch.utils.stats import FrameStats, log, setup_logging
+from refraction_tpu_torch.viewer import FrameServer
 
 
 def to_u8(img: torch.Tensor, linear: bool = False) -> torch.Tensor:
@@ -161,8 +163,6 @@ def main(argv=None) -> int:
         os.makedirs(out_dir, exist_ok=True)
     cfg = build_config(args)
     if args.mtl_ior:
-        from refraction_tpu.io.mtl import ior_for_scene
-
         src = mtl_ior_source(args, cfg)
         cfg = cfg.replace(ior=ior_for_scene(src, cfg.ior))
         log.info("IOR from MTL (%s): %.4g", src, cfg.ior)
@@ -200,8 +200,6 @@ def main(argv=None) -> int:
                              f"{(cfg.height, cfg.width)}")
     serve = None
     if args.serve is not None:
-        from refraction_tpu.viewer import FrameServer
-
         serve = FrameServer(port=args.serve)
         log.info("live viewer at http://0.0.0.0:%d/", serve.port)
 

@@ -201,10 +201,10 @@ def test_cli_instances_and_mtl_ior(tmp_path, caplog):
 @pytest.mark.parametrize("where", ["as given", "beside the scene"])
 def test_mtl_ior_source_is_the_first_obj_load_instanced_reads(
         tmp_path, monkeypatch, form, where):
-    """`refraction_tpu.scene.load_instanced` returns no paths, so
-    ``run.mtl_ior_source`` reads the spec itself; it must name the file
-    that load_instanced parses first."""
-    import refraction_tpu.scene as jax_scene
+    """`scene.load_instanced` returns no paths, so ``run.mtl_ior_source``
+    reads the spec itself; it must name the file that the port's
+    load_instanced (the one the CLI calls) parses first."""
+    import refraction_tpu_torch.scene as port_scene
 
     spec, hdr = _write_spec(tmp_path)
     entries = json.loads(open(spec).read())
@@ -217,10 +217,10 @@ def test_mtl_ior_source_is_the_first_obj_load_instanced_reads(
     cfg = RenderConfig(width=W, height=H, envmap_path=hdr,
                        scene_path=str(tmp_path / "scene.obj"))
     read = []
-    parse = jax_scene.parse_obj
-    monkeypatch.setattr(jax_scene, "parse_obj",
+    parse = port_scene.parse_obj
+    monkeypatch.setattr(port_scene, "parse_obj",
                         lambda p: read.append(p) or parse(p))
-    jax_load_instanced(spec, cfg)
+    port_scene.load_instanced(spec, cfg)
     args = run.parse_args(["--instances", spec])
     assert run.mtl_ior_source(args, cfg) == read[0]
 

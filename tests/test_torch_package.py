@@ -1,6 +1,9 @@
-"""refraction_tpu_torch as a package: no JAX, exact scene upload, and no
-silent fallback when the CUDA toolchain or card is missing."""
+"""refraction_tpu_torch as a package: no JAX and nothing of the JAX
+package, exact scene upload, and no silent fallback when the CUDA
+toolchain or card is missing."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -28,6 +31,79 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# Every Python file of the port, and the chip smoke script.
+PORT_FILES = sorted(
+    os.path.relpath(p, REPO) for p in
+    glob.glob(os.path.join(REPO, "refraction_tpu_torch", "**", "*.py"),
+              recursive=True)) + ["chip_smoke.py"]
+# Top-level names the port may not import: JAX, the JAX package, the oracle.
+FORBIDDEN = ("jax", "jaxlib", "refraction_tpu", "oracle")
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_no_import_of_jax_or_the_jax_package(path):
+    """An AST scan: no ``import`` or ``from`` of jax, jaxlib,
+    refraction_tpu (or refraction_tpu.*) or oracle, at any depth (function
+    bodies included)."""
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif (isinstance(node, ast.ImportFrom) and node.level == 0
+              and _forbidden(node.module or "")):
+            bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+_NOTHING_OF_JAX_SCRIPT = """
+import importlib, pkgutil, sys
+import refraction_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(refraction_tpu_torch.__path__,
+                                              "refraction_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+need = {"run", "viewer", "profile_rounds", "mxu_mt_bench", "stallbench",
+        "config", "camera", "scene", "io.objmesh", "io.texture", "io.hdr",
+        "io.png", "io.mtl", "io.primitives", "bvh.morton", "bvh.clusters",
+        "utils.stats"}
+missing = {"refraction_tpu_torch." + m for m in need} - set(mods)
+assert not missing, missing
+# The CLI on the CPU at a tiny size, from files the port writes itself.
+import tempfile
+from refraction_tpu_torch import run
+from refraction_tpu_torch.fixtures import write_scene
+from refraction_tpu_torch.io.primitives import make_gradient_envmap, make_icosphere
+tmp = tempfile.mkdtemp()
+obj, hdr = write_scene(tmp, "ball", make_icosphere(1, 1.2),
+                       make_gradient_envmap(16, 32))
+assert run.main(["--scene", obj, "--envmap", hdr, "--width", "8",
+                 "--height", "6", "--device", "cpu",
+                 "--out", tmp + "/f.png"]) == 0
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "refraction_tpu", "oracle")
+             or m.startswith("refraction_tpu."))
+assert not bad, bad
+print(len(mods), "modules")
+"""
+
+
+def test_package_imports_nothing_of_the_jax_package():
+    """A fresh process imports the package and every submodule and runs
+    the CLI on the CPU; no key of sys.modules is then jax, refraction_tpu,
+    refraction_tpu.* or oracle."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _NOTHING_OF_JAX_SCRIPT],
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[0]) >= 36
+
 _NO_JAX_SCRIPT = """
 import importlib, pkgutil, sys
 import torch
@@ -38,7 +114,7 @@ mods = [m.name for m in pkgutil.walk_packages(refraction_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 from refraction_tpu_torch import RenderConfig
-from refraction_tpu_torch.fixtures import make_cube, make_gradient_envmap
+from refraction_tpu_torch.io.primitives import make_cube, make_gradient_envmap
 from refraction_tpu_torch.render import render_frame
 from refraction_tpu_torch.scene import build_scene, scene_from_jax
 scene = scene_from_jax(build_scene(make_cube(2.0), make_gradient_envmap(),
@@ -102,6 +178,16 @@ def test_cli_cuda_without_cuda_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run.main(["--device", "cuda", "--out", str(tmp_path / "x.png")])
     assert not (tmp_path / "x.png").exists()
+
+
+def test_frame_times_needs_cuda(monkeypatch):
+    """The timing tool has no CPU path: without CUDA it raises before it
+    loads anything."""
+    from refraction_tpu_torch import frame_times
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        frame_times.main(["--scene", "missing.obj"])
 
 
 def test_wrapper_checks_its_inputs():

@@ -16,7 +16,7 @@ import torch
 from oracle.numpy_tracer import render_oracle
 from refraction_tpu_torch import RenderConfig
 from refraction_tpu_torch.camera import orbit_camera
-from refraction_tpu_torch.fixtures import (
+from refraction_tpu_torch.io.primitives import (
     make_cube, make_gradient_envmap, make_icosphere)
 from refraction_tpu_torch.integrator import (
     initial_state, render_pixels, render_pixels_mega)
@@ -126,7 +126,11 @@ def test_frame_kernel_at_large_scene(cuda):
 
 
 def test_frame_kernel_matches_oracle(cuda):
-    sc = _scenes()["sphere"]
+    # The oracle reads the JAX package's Scene (it needs tri_norm); its
+    # uploaded leaves equal the port's build bit for bit.
+    from refraction_tpu.scene import build_scene as jax_build_scene
+
+    sc = jax_build_scene(make_icosphere(3, 1.2), make_gradient_envmap(), 128)[0]
     cfg = RenderConfig(width=64, height=48)
     frame = orbit_camera(0.85, cfg)
     img = fused_radiance(scene_from_jax(sc, cuda),

@@ -26,16 +26,27 @@ Phases (any failure raises; nothing is caught):
      launched exactly once per frame; then its ptxas line (registers,
      stack, spills), its device time at demo, demo spp 4 and large, and
      each one's bound (bounds.py: the traversal work of the frame's rays);
-  6. round kernel vs its plain version per variant on 2^16 lanes (with
-     subnormal weights); the wavefront path at the demo configuration and
-     at the large scene, with every launch count set to 0 just before each
-     and read just after: the round kernel must be launched once per
-     bounce round (6 and 5 times); each image is held against the frame
-     kernel's and the eager integrator's (the plain wavefront; the whole
-     demo frame, every 64th pixel of the large one), and rays_traced
-     against the eager count; count_live_rays must equal rays_traced; then
-     profile_rounds on both, and the live rays per frame and live Mrays/s
-     (live rays / frame-kernel ms);
+  6. the round kernel in both layouts on 2^16 lanes (with subnormal
+     weights), per variant: the static layout vs its plain version; the
+     compacted layout (a shuffled queue of the live lanes) vs its plain
+     version after sorting by slot (child slot sets, counts within the
+     capacity) and bit for bit vs the static kernel at each slot, then on
+     an empty queue and on two misses per pixel, a subnormal and a normal
+     radiance, in either queue order (sums bit-equal to the static
+     layout's); the wavefront path (compacted) at the demo
+     configuration and at the large scene, with every launch count set to
+     0 just before each and read just after: the compacted round kernel
+     must be launched once per bounce round (6 and 5 times) and nothing
+     else; each is held against the static-layout wavefront
+     (integrator.static_wavefront; stats exact, image to 1e-7 RMSE), the frame
+     kernel and the eager integrator (the plain wavefront; the whole demo
+     frame, every 64th pixel of the large one), rays_traced against the
+     eager count; count_live_rays must equal rays_traced; the demo frame
+     runs under torch.cuda.set_sync_debug_mode("error"), with and without
+     stats; both wavefronts' times against the bound of the frame's ray
+     tree (bounds.round_bound); then profile_rounds on both (every queue
+     count within its static width), and the live rays per frame and live
+     Mrays/s (live rays / frame-kernel ms);
   7. the traversal instruments: the MT and Woop sub-visit kernels equal
      their plain versions exactly at V = 64 and 70 (which wraps the
      64-sub table) on the tool's inputs with the tool's all-ones cull and
@@ -57,9 +68,10 @@ Phases (any failure raises; nothing is caught):
      127.0.0.1 returns a PNG of the frame's size).
 
 The line before the last is a JSON object with each kernel's launches in
-its main-path phase (5 for the frame kernel, 6 for the round kernel, 8
-for the closest-hit and env kernels, the CLIs of 7 for the
-instruments), its error against the plain version, both times and its
+its main-path phase (5 for the frame kernel, 6 for the round kernel in
+both layouts: ``round_queue`` on the wavefront path, ``round`` on the
+static-layout wavefronts held against it; 8 for the closest-hit and env
+kernels, the CLIs of 7 for the instruments), its error against the plain version, both times and its
 bound (bounds.py; ``library_ms`` is null: no single PyTorch call computes
 any of these functions); the last line is ``{"ok": true, "device":
 {...}}``. Without CUDA it exits non-zero and prints no result.
@@ -85,6 +97,9 @@ IMG_RMSE = 1e-4         # frame RMSE against the plain version
 PIX_TOL = 1e-3          # a pixel "differs" if any channel is off by more
 PIX_SHARE = 1e-4        # ... and at most this share of pixels may differ
 CHILD_ATOL = 1e-5       # round children where liveness agrees
+# Compacted vs static-layout wavefront: a pixel's misses within one round
+# are added with atomics in no fixed order (exact for up to two).
+WAVE_RMSE, WAVE_MAX = 1e-7, 1e-6
 LARGE_STRIDE = 64       # plain version on every 64th pixel of the large frame
 
 
@@ -203,7 +218,8 @@ def main() -> int:
     from refraction_tpu_torch import RenderConfig, bounds
     from refraction_tpu_torch.bvh.clusters import build_clusters
     from refraction_tpu_torch.camera import orbit_camera
-    from refraction_tpu_torch.fixtures import write_obj, write_scene
+    from refraction_tpu_torch.fixtures import (
+        paired_miss_lanes, write_obj, write_scene)
     from refraction_tpu_torch.io.primitives import (
         make_cube, make_gradient_envmap, make_icosphere)
     from refraction_tpu_torch.kernels import _build
@@ -214,9 +230,11 @@ def main() -> int:
     from refraction_tpu_torch.kernels.intersect import (
         closest_hit, closest_hit_plain)
     from refraction_tpu_torch.kernels.megakernel import (
-        mega_round, mega_round_plain)
+        LaneQueue, empty_queue, mega_round, mega_round_plain,
+        mega_round_queue, mega_round_queue_plain)
     from refraction_tpu_torch.camera import generate_rays
-    from refraction_tpu_torch.integrator import render_pixels, render_pixels_mega
+    from refraction_tpu_torch.integrator import (
+        render_pixels, render_pixels_mega, static_wavefront, static_widths)
     from refraction_tpu_torch.ops.backends import get_backend
     from refraction_tpu_torch.render import (
         count_live_rays, frame_traversal_work, sample_offsets)
@@ -483,7 +501,8 @@ def main() -> int:
 
     # --- phase 6: per-round wavefront -----------------------------------
     log("phase 6: round kernel vs plain; wavefront path (render_pixels_mega)")
-    counters = (fused_radiance, closest_hit, env_contribution, mega_round)
+    counters = (fused_radiance, closest_hit, env_contribution, mega_round,
+                mega_round_queue)
     n = 2 ** 16
     lanes = np.stack([*rng.uniform(-3, 3, (3, n)), *d_np.T,
                       rng.choice([1.0, -1.0, 0.0], n), rng.random(n)])
@@ -525,28 +544,166 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"round kernel {vname} disagrees with plain")
 
-    round_launches = 0
+    # The compacted round kernel on the live lanes of the same state, as a
+    # queue in shuffled order, one pixel per slot: against its plain
+    # version (after sorting by slot) and, bit for bit, against the static
+    # kernel's results at each slot; then an empty queue.
+    live_idx = torch.nonzero(state[6] != 0).squeeze(1)
+    live_idx = live_idx[torch.randperm(
+        live_idx.numel(), generator=torch.Generator().manual_seed(5)).to(dev)]
+    n_live = int(live_idx.numel())
+
+    def queue(cap, width, lanes=None, slots=None):
+        st, sl = empty_queue(cap, dev)
+        if lanes is not None:
+            st[:, :lanes.shape[1]] = lanes
+            sl[:slots.numel()] = slots
+        count = torch.tensor([0 if lanes is None else lanes.shape[1]],
+                             dtype=torch.int32, device=dev)
+        return LaneQueue(st, sl, count, width)
+
+    def by_slot(q):
+        c = int(q.count)
+        slots, order = torch.sort(q.slot[:c].long())
+        return slots, q.state[:, :c][:, order]
+
+    queue_err = 0.0
+    for vname, want_reflect, want_children in (
+            ("full", True, True), ("norefl", False, True),
+            ("missonly", False, False)):
+        w_out = n * (2 if want_reflect else 1)
+        outs, rads, pix = [], [], []
+        for fn in (mega_round_queue, mega_round_queue_plain):
+            q_in = queue(n, n, state[:, live_idx], live_idx.to(torch.int32))
+            outs.append(queue(w_out, w_out) if want_children else None)
+            rads.append(torch.zeros(n, 3, dtype=torch.float32, device=dev))
+            pix.append(torch.zeros(n, dtype=torch.int32, device=dev))
+            fn(sphere, q_in, limits, want_reflect, want_children, rads[-1],
+               pix[-1], outs[-1])
+        static = mega_round(sphere, state, limits, want_reflect,
+                            want_children)
+        torch.cuda.synchronize()
+        rad_d = (rads[0] - rads[1]).abs()
+        rad_off = float((rad_d.amax(dim=1) > PIX_TOL).double().mean())
+        err = float(rad_d.max())
+        exact = bool(torch.equal(rads[0], static.radiance))
+        ok = (rad_off <= 1 - HIT_AGREE and exact
+              and torch.equal(pix[0], pix[1])
+              and int(pix[0].sum()) == n_live)
+        msg = (f"  compacted {vname}: {n_live} queued, radiance share>"
+               f"{PIX_TOL:g} {rad_off:.2e}, equal to the static kernel's "
+               f"{exact}")
+        if want_children:
+            count = int(outs[0].count)
+            sk, ck = by_slot(outs[0])
+            sp, cp = by_slot(outs[1])
+            common = torch.from_numpy(np.intersect1d(
+                sk.cpu().numpy(), sp.cpu().numpy())).to(dev)
+            only = sk.numel() + sp.numel() - 2 * common.numel()
+            kid_err = float((ck[:, torch.searchsorted(sk, common)]
+                             - cp[:, torch.searchsorted(sp, common)])
+                            .abs().max())
+            err = max(err, kid_err)
+            # The static kernel's children at the queued slots, bit for bit,
+            # and no live static child left out.
+            alive_s = static.children[6] != 0
+            exact_kids = (torch.equal(sk, torch.nonzero(alive_s).squeeze(1))
+                          and torch.equal(ck, static.children[:, sk]))
+            msg += (f"; children {count} (capacity {w_out}), slots in one "
+                    f"version only {only}, child max abs err {kid_err:.2e}, "
+                    f"equal to the static kernel's {exact_kids}")
+            ok = (ok and count <= w_out and only <= (1 - HIT_AGREE) * n
+                  and kid_err <= CHILD_ATOL and exact_kids)
+            if want_reflect:
+                refl = sk >= n
+                under = refl & subnormal[(sk - n).clamp(0, n - 1)]
+                ok = ok and int(under.sum()) > 0 and bool(
+                    (ck[7][under] == 0).all())
+                msg += f", {int(under.sum())} queued reflections of weight 0"
+        queue_err = max(queue_err, err)
+        log(msg)
+        if not ok:
+            raise AssertionError(f"compacted round kernel {vname} disagrees")
+        # An empty queue: one launch that adds and appends nothing.
+        rad0 = torch.zeros(n, 3, dtype=torch.float32, device=dev)
+        pix0 = torch.zeros(n, dtype=torch.int32, device=dev)
+        out0 = queue(w_out, w_out) if want_children else None
+        mega_round_queue(sphere, queue(n, n), limits, want_reflect,
+                         want_children, rad0, pix0, out0)
+        torch.cuda.synchronize()
+        if (bool(rad0.any()) or bool(pix0.any())
+                or (out0 is not None and int(out0.count) != 0)):
+            raise AssertionError(f"compacted {vname}: empty queue emitted")
+    log("  compacted kernel on an empty queue (count 0): nothing added, "
+        "nothing appended, for every variant")
+    # Two misses per pixel, a subnormal and a small normal radiance, in
+    # either queue order: each pixel's sum equals the static layout's, the
+    # subnormal kept (a float atomic add would flush it from the sum).
+    p = 1 << 15
+    pair = torch.from_numpy(paired_miss_lanes(p, seed=6)).to(dev)
+    static = mega_round(sphere, pair, limits, False, False).radiance
+    want = static.reshape(2, p, 3).sum(dim=0)
+    shows = int((want != static[p:]).any(dim=1).sum())
+    for order in (torch.arange(2 * p, device=dev),
+                  torch.arange(2 * p, device=dev).roll(p)):
+        rad_pair = torch.zeros(p, 3, dtype=torch.float32, device=dev)
+        mega_round_queue(sphere, queue(2 * p, 2 * p, pair[:, order],
+                                       order.to(torch.int32)),
+                         limits, False, False, rad_pair)
+        if shows == 0 or not torch.equal(rad_pair, want):
+            raise AssertionError("compacted kernel: a pixel's subnormal and "
+                                 "normal misses sum differently")
+    log(f"  compacted kernel, a subnormal and a normal miss at each of {p} "
+        f"pixels, either queue order: sums equal the static layout's "
+        f"({shows} pixels where the subnormal changes the sum)")
+
+    round_launches = {"mega_round": 0, "mega_round_queue": 0}
     wave = {}
     eager = get_backend("torch")  # the eager integrator: the plain wavefront
     for tag, sc, c in (("demo", demo, cfg), ("large", large, cfg_l)):
         frame = orbit_camera(0.01, c)
         npx = c.width * c.height
+        rounds = c.max_refract_depth + 1
         o, d = generate_rays(frame, c.width, c.height, dev)
         for k in counters:
             k.launches = 0
         img, st = render_pixels_mega(sc, o, d, c, collect_stats=True)
         torch.cuda.synchronize()
         got = {k.__name__: k.launches for k in counters}
-        rounds = c.max_refract_depth + 1
         if got != {"fused_radiance": 0, "closest_hit": 0,
-                   "env_contribution": 0, "mega_round": rounds}:
+                   "env_contribution": 0, "mega_round": 0,
+                   "mega_round_queue": rounds}:
             raise AssertionError(f"{tag}: launches {got}, want {rounds} "
-                                 "round-kernel launches and no other")
-        round_launches += got["mega_round"]
+                                 "compacted round-kernel launches and no other")
+        round_launches["mega_round_queue"] += got["mega_round_queue"]
         rays = int(st["rays_traced"])
         if (tuple(img.shape) != (npx, 3) or not bool(torch.isfinite(img).all())
                 or float(img.std()) == 0.0):
             raise AssertionError(f"{tag}: bad wavefront image")
+        # The static-layout wavefront, counted on its own.
+        for k in counters:
+            k.launches = 0
+        img_s, st_s = static_wavefront(sc, o, d, c, collect_stats=True)
+        torch.cuda.synchronize()
+        round_launches["mega_round"] += mega_round.launches
+        if mega_round.launches != rounds or mega_round_queue.launches != 0:
+            raise AssertionError(f"{tag}: static wavefront launches "
+                                 f"{mega_round.launches}")
+        d_s = (img - img_s).abs()
+        bit_equal = float((d_s == 0).all(dim=1).double().mean())
+        wave_rmse = float(torch.sqrt(torch.mean(d_s.double() ** 2)))
+        log(f"  {tag} compacted vs static-layout wavefront: rays_traced {rays}"
+            f" vs {int(st_s['rays_traced'])}, pixel_rays equal "
+            f"{bool(torch.equal(st['pixel_rays'], st_s['pixel_rays']))}, "
+            f"slot_rounds {st['slot_rounds']}; image rmse {wave_rmse:.3e} "
+            f"max abs {float(d_s.max()):.3e}, bit-equal pixels {bit_equal:.6f}"
+            f" ({int((d_s != 0).any(dim=1).sum())} of {npx} differ)")
+        if (rays != int(st_s["rays_traced"])
+                or not torch.equal(st["pixel_rays"], st_s["pixel_rays"])
+                or st["slot_rounds"] != sum(static_widths(c, npx))
+                or wave_rmse >= WAVE_RMSE or float(d_s.max()) >= WAVE_MAX):
+            raise AssertionError(f"{tag}: compacted and static wavefronts "
+                                 "disagree")
         img = img.reshape(c.height, c.width, 3)
         scal = build_scalars(frame, c, sample_offsets(1), dev)
         check_image(f"{tag} wavefront vs frame kernel",
@@ -568,26 +725,62 @@ def main() -> int:
         if rays_sub != int(st_p["rays_traced"]):
             raise AssertionError(f"{tag}: rays_traced {rays_sub} vs eager "
                                  f"{int(st_p['rays_traced'])}")
+        if stride == 1 and not torch.equal(st["pixel_rays"],
+                                           st_p["pixel_rays"]):
+            raise AssertionError(f"{tag}: pixel_rays differ from the eager")
         live = count_live_rays(sc, c, frame, dev)
         if live != rays:
             raise AssertionError(f"{tag}: count_live_rays {live} vs {rays}")
-        wave_ms = cuda_ms(torch, lambda: render_pixels_mega(sc, o, d, c), 5)
+        if tag == "demo":
+            # No round may wait for the host: any synchronizing call raises.
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                render_pixels_mega(sc, o, d, c)
+                render_pixels_mega(sc, o, d, c, collect_stats=True)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            log("  demo render_pixels_mega under set_sync_debug_mode('error'),"
+                " collect_stats False and True: no host sync")
+        wave_ms = cuda_ms(torch, lambda: render_pixels_mega(sc, o, d, c), 20)
+        static_ms = cuda_ms(
+            torch, lambda: static_wavefront(sc, o, d, c), 20)
         frame_k_ms = cuda_ms(torch, lambda: fused_radiance(sc, scal, c), 10)
+        levels = frame_rows[tag]["levels"]
+        rb = bounds.round_bound(sc, c, levels)
         wave[tag] = {"rays_traced": rays, "slot_rounds": st["slot_rounds"],
-                     "wavefront_ms": wave_ms, "frame_kernel_ms": frame_k_ms,
+                     "wavefront_ms": wave_ms, "static_wavefront_ms": static_ms,
+                     "frame_kernel_ms": frame_k_ms,
                      "plain_ms": wave_plain_ms,
                      "plain_pixels": int(idx.numel()),
-                     "max_abs_err": diff["max_abs_err"],
+                     "max_abs_err": max(diff["max_abs_err"],
+                                        float(d_s.max())),
+                     "bit_equal_share": bit_equal, "bound": rb,
                      "mrays_live": rays / frame_k_ms / 1e3}
         log(f"  {tag}: rays_traced {rays} (eager {int(st_p['rays_traced'])} "
             f"on {idx.numel()} pixels), slot_rounds {st['slot_rounds']}; "
-            f"wavefront {wave_ms:.3f} ms, frame kernel {frame_k_ms:.3f} ms, "
-            f"eager {wave_plain_ms:.1f} ms on {idx.numel()} pixels [{card}]")
+            f"wavefront {wave_ms:.4f} ms (static layout {static_ms:.4f} ms), "
+            f"frame kernel {frame_k_ms:.4f} ms, eager {wave_plain_ms:.1f} ms "
+            f"on {idx.numel()} pixels [{card}]")
+        log(f"  {tag}: wavefront bound {rb['bound_ms']:.4f} ms by "
+            f"{rb['bound_by']} ({rb['bytes']} bytes, {rb['ops']} FP32 ops), "
+            f"{rb['bound_ms'] / wave_ms:.1%} of it; the static layout's "
+            f"bytes {rb['static_bytes']} ({rb['static_bound_ms']:.4f} ms) "
+            f"[{card}]")
         log(f"  {tag}: live rays per frame {live} [{card}]")
         log(f"  {tag}: live Mrays/s {rays / frame_k_ms / 1e3:.1f} (live rays / "
             f"frame-kernel ms) [{card}]")
-    log(f"  round-kernel launches on the wavefront path: {round_launches}")
+    log(f"  round-kernel launches on the wavefront path: compacted "
+        f"{round_launches['mega_round_queue']}; static layout "
+        f"{round_launches['mega_round']}")
     for tag, (_, _, wd, ht, bounces, _) in zip(("demo", "large"), runs):
+        c = cfg if tag == "demo" else cfg_l
+        sc = demo if tag == "demo" else large
+        rows = profile_rounds.profile_rounds(sc, c, orbit_camera(0.01, c), dev)
+        if any(r["live"] > r["lanes"] for r in rows):
+            raise AssertionError(f"{tag}: a queue count past its static "
+                                 f"width: {rows}")
         rc = profile_rounds.main([
             "--scene", paths[tag][0], "--envmap", paths[tag][1],
             "--width", str(wd), "--height", str(ht), "--bounces", str(bounces),
@@ -688,7 +881,8 @@ def main() -> int:
     # --- phase 8: the CLI flags on CUDA ---------------------------------
     log("phase 8: CLI flags (--instances, --accumulate/--resume, --heatmap, "
         "--serve)")
-    counters = (fused_radiance, closest_hit, env_contribution, mega_round)
+    counters = (fused_radiance, closest_hit, env_contribution, mega_round,
+                mega_round_queue)
 
     def drive(argv, want_launches):
         """Run the CLI with every count set to 0 just before; the counts
@@ -748,7 +942,8 @@ def main() -> int:
     eager_launches = {k.__name__: k.launches for k in counters}
     rounds = cfg_i.max_refract_depth + 1
     if eager_launches != {"fused_radiance": 0, "closest_hit": rounds,
-                          "env_contribution": rounds, "mega_round": 0}:
+                          "env_contribution": rounds, "mega_round": 0,
+                          "mega_round_queue": 0}:
         raise AssertionError(f"eager instanced render: {eager_launches}")
     inst_diff = image_diff(np, img_k, img_e.reshape(192, 256, 3))
     check_image("instanced 256x192 frame kernel vs eager integrator (cuda "
@@ -785,7 +980,8 @@ def main() -> int:
     heat_png = os.path.join(tmp, "heat.png")
     drive(["--scene", paths["demo"][0], "--envmap", env_path, "--width",
            "1024", "--height", "768", "--bounces", "5", "--heatmap", heat_png,
-           "--device", "cuda"], {"mega_round": cfg.max_refract_depth + 1})
+           "--device", "cuda"],
+          {"mega_round_queue": cfg.max_refract_depth + 1})
     frame = orbit_camera(0.01, cfg)
     counts = render_heatmap(demo, cfg, frame, dev)
     live = count_live_rays(demo, cfg, frame, dev)
@@ -816,8 +1012,10 @@ def main() -> int:
 
     mt_r, vt_words = int(mt_a[3].numel()), {"mt": inp.tri_flat.size,
                                              "woop": inp.W.size}
+    tree = wave["demo"]["bound"]
     bnd = {"frame": frame_rows["demo"]["bound"],
-           "round": bounds.round_bound(demo, cfg, frame_rows["demo"]["levels"]),
+           "round": bounds.bound(tree["ops"], tree["static_bytes"]),
+           "round_queue": tree,
            "closest_hit": results["closest_hit"][4], "env": results["env"][3],
            "mt_vpu": bounds.mtbench_bound("mt", mt_r, vt, vt_words["mt"]),
            "mt_woop": bounds.mtbench_bound("woop", mt_r, vt,
@@ -832,12 +1030,25 @@ def main() -> int:
             {"name": "round", "route": "cuda",
              "source": "refraction_tpu_torch/csrc/round.cu",
              "replaces": "refraction_tpu/kernels/megakernel.py:43",
-             "launches": round_launches,
-             "max_abs_err": max(wave["demo"]["max_abs_err"], variant_err),
+             "launches": round_launches["mega_round"],
+             "max_abs_err": variant_err,
+             "ms": wave["demo"]["static_wavefront_ms"],
+             "plain_ms": wave["demo"]["plain_ms"],
+             "tree_bound_ms": tree["bound_ms"],
+             "timed": "the static-layout wavefront (6 launches) vs the "
+                      "eager integrator, demo 1024x768 5/2; bound: the "
+                      "static layout's bytes; launches from phase 6's "
+                      "static-layout wavefronts"},
+            {"name": "round_queue", "route": "cuda",
+             "source": "refraction_tpu_torch/csrc/round.cu",
+             "replaces": "refraction_tpu/kernels/megakernel.py:43",
+             "launches": round_launches["mega_round_queue"],
+             "max_abs_err": max(wave["demo"]["max_abs_err"], queue_err),
              "ms": wave["demo"]["wavefront_ms"],
              "plain_ms": wave["demo"]["plain_ms"],
              "timed": "render_pixels_mega (6 launches) vs the eager "
-                      "integrator, demo 1024x768 5/2"},
+                      "integrator, demo 1024x768 5/2; bound: the live ray "
+                      "tree (bounds.round_bound)"},
             {"name": "closest_hit", "route": "cuda",
              "source": "refraction_tpu_torch/csrc/closest_hit.cu",
              "replaces": "refraction_tpu/kernels/intersect_pallas.py:140",

@@ -17,8 +17,9 @@ time).
     python -m refraction_tpu_torch.bounds --scene X.obj --envmap X.hdr \\
         --width 1920 --height 1080 --bounces 4 [--spp 4] [--device cuda]
 
-prints one JSON line: the frame kernel's bound at that shape and the
-traversal work per bounce level.
+prints one JSON line: the frame kernel's bound at that shape, the
+traversal work per bounce level and, at spp 1, the bound of the
+wavefront's round-kernel launches for the frame (``round``).
 """
 
 from __future__ import annotations
@@ -55,6 +56,9 @@ WOOP_VISIT_OPS = 48 * 15 + 8 * 13
 STALL_ITER_OPS = {"vecops": 128, "tree": 4, "extract": 3, "while2": 4,
                   "loads72": 144, "subplane": 36}
 STATE_ROW_BYTES = 8 * 4  # one lane of the round kernel's (8, W) state
+QUEUE_LANE_BYTES = STATE_ROW_BYTES + 4  # a queued lane: state and slot id
+RADIANCE_BYTES = 3 * 4  # one lane's miss radiance
+SECTOR_BYTES = 32  # the least a scattered load moves from memory
 
 
 def bound(ops: float, nbytes: float) -> dict:
@@ -98,22 +102,45 @@ def frame_bound(scene, cfg: RenderConfig, levels: list[dict]) -> dict:
     return out
 
 
+def round_map_bytes(scene, misses: int) -> int:
+    """Map bytes one round must read for ``misses`` env lookups: a sector
+    per lookup, at most the whole map."""
+    return min(env_bytes(scene), misses * SECTOR_BYTES)
+
+
 def round_bound(scene, cfg: RenderConfig, levels: list[dict]) -> dict:
     """Bound of the wavefront's round-kernel launches for one frame (spp 1):
-    per round the traversal work of its live lanes, its (8, W) state read,
-    its (W, 3) radiance and (8, W_out) children written, and the tables and
-    map it reads; summed over the rounds."""
+    the work of the frame's ray tree (``levels`` from
+    render.frame_traversal_work). Per bounce level k with L_k live lanes
+    (``levels[k]["rays"]``): their state and slot ids read, their radiance
+    written, and their live children, the next level's L_(k+1) lanes,
+    written with their slot ids; the tables; the map texels of the level's
+    misses (`round_map_bytes`); the traversal work of the live lanes.
+
+    ``static_bytes`` (with ``static_bound_ms``) is what the static layout
+    moves, for the record: every lane of the widths N, 2N, 4N, ... reads
+    its state and writes its radiance and both children, dead or alive,
+    beside the same tables and texels."""
+    rays = [lv["rays"] for lv in levels] + [0]
+    per_round = [table_bytes(scene) + round_map_bytes(scene, lv["misses"])
+                 for lv in levels]
+    nbytes = sum(live * (QUEUE_LANE_BYTES + RADIANCE_BYTES)
+                 + rays[k + 1] * QUEUE_LANE_BYTES + per_round[k]
+                 for k, live in enumerate(rays[:-1]))
+    ops = traversal_ops(_summed(levels))
+    out = bound(ops, nbytes)
     n = cfg.width * cfg.height
-    width, nbytes = n, 0
+    width, static = n, 0
     for count in range(cfg.max_refract_depth + 1):
         children = count < cfg.max_refract_depth
         out_w = (2 * width if children and count < cfg.max_reflect_depth
                  else width if children else 0)
-        nbytes += (width * STATE_ROW_BYTES + width * 3 * 4
-                   + out_w * STATE_ROW_BYTES + table_bytes(scene)
-                   + env_bytes(scene))
+        static += (width * (STATE_ROW_BYTES + RADIANCE_BYTES)
+                   + out_w * STATE_ROW_BYTES + per_round[count])
         width = out_w
-    return bound(traversal_ops(_summed(levels)), nbytes)
+    out.update(static_bytes=static,
+               static_bound_ms=bound(ops, static)["bound_ms"])
+    return out
 
 
 def closest_hit_bound(scene, o, d, cull, tmin: float, t_hit) -> dict:
@@ -164,7 +191,8 @@ def main(argv=None) -> int:
     scene = scene_from_jax(scene_np, device)
     levels = frame_traversal_work(scene, cfg, orbit_camera(0.01, cfg), device)
     out = frame_bound(scene, cfg, levels)
-    out.update(levels=levels, tris=meta.num_real_tris,
+    out.update(round=round_bound(scene, cfg, levels) if cfg.spp == 1 else None,
+               levels=levels, tris=meta.num_real_tris,
                clusters=scene.num_clusters, supers=scene.num_supers,
                shape=[cfg.width, cfg.height, cfg.max_refract_depth, cfg.spp],
                card=card_line(device))

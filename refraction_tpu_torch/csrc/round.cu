@@ -3,41 +3,60 @@
 //
 // Replaces refraction_tpu/kernels/megakernel.py::mega_round (pallas_call at
 // 232) and its kernel bodies _mega_kernel (43), _mega_kernel_norefl (266)
-// and _mega_kernel_missonly (282), as one kernel templated on the variant:
+// and _mega_kernel_missonly (282), as one lane body templated on the
+// variant:
 //
 //   RT_ROUND_FULL      radiance + refraction child + reflection child
 //   RT_ROUND_CHILDREN  radiance + refraction child
 //   RT_ROUND_RADIANCE  radiance only (the depth-cap round; hits add black)
 //
-// Lane state is SoA, eight float32 rows of length W in one (8, W) tensor:
-// ox oy oz dx dy dz cull wgt, with cull = +1 outside, -1 inside, 0 dead.
-// Per lane:
-//   rad   = wgt * env[texel(d)] on a live miss, else 0      -> rad (W, 3)
-//   refraction child (lane i of the next state):
-//     o = hit point (o where there is no hit), d = refract(d, n', eta),
-//     cull = -cull, wgt = wgt * (1 - R); dead (cull 0, wgt 0,
-//     d = (0, 1, 0)) on TIR, a miss or a dead parent
-//   reflection child (lane W + i), full variant only:
-//     d = reflect(d, n'), cull = cull, wgt = wgt * R, alive on EVERY hit,
-//     TIR included; its liveness comes from the hit, never from the weight,
-//     which may underflow to 0 (megakernel.py:185-190)
-// The next state is (8, W_out) with W_out = 2W (full) or W (children), so
-// the host does no concatenation: the JAX integrator's
-// concatenate([refraction, reflection]) layout is written in place.
+// Lane state is SoA, eight float32 rows of a common row length (the
+// stride): ox oy oz dx dy dz cull wgt, with cull = +1 outside, -1 inside,
+// 0 dead. Per lane (rt_round_lane):
+//   rad   = wgt * env[texel(d)] on a live miss, else 0
+//   refraction child: o = hit point (o where there is no hit),
+//     d = refract(d, n', eta), cull = -cull, wgt = wgt * (1 - R); dead
+//     (cull 0, wgt 0, d = (0, 1, 0)) on TIR, a miss or a dead parent
+//   reflection child, full variant only: d = reflect(d, n'), cull = cull,
+//     wgt = wgt * R, alive on EVERY hit, TIR included; its liveness comes
+//     from the hit, never from the weight, which may underflow to 0
+//     (megakernel.py:185-190)
+//
+// The lane body runs under two output layouts:
+//
+//   static (rt_round_kernel, entry rt_round; the JAX mega_round's layout):
+//     W lanes in, every lane out: rad (W, 3) at i, and the next state
+//     (8, W_out), W_out = 2W (full) or W (children), with the refraction
+//     child of lane i at i and its reflection child at W + i, dead or
+//     alive: the JAX integrator's concatenate([refraction, reflection]).
+//   compacted (rt_round_queue_kernel, entry rt_round_queue): a queue of
+//     `count` live lanes, each with its slot id, its index in the static
+//     layout above (pixel = slot % N). The lane's miss radiance is added
+//     into an (N, 3) accumulator at its pixel, and only
+//     live children are appended to the next queue: the refraction child
+//     keeps slot s, the reflection child takes s + W (W = the round's
+//     static width), their static positions. The kernel reads `count` from
+//     device memory, so the host never waits for it.
 //
 // The TPU kernel's layouts are dropped: the (rows, 128) tiling, the
 // 1024-lane padding and GROUP, the roll-tree tile gates and env_packed.
-// W may be any length >= 0; the map is the float32 (H, W, 3) envmap.
-// eta = 1/ior is computed in float32 from the float32 ior, as the JAX
-// kernel does.
+// The map is the float32 (H, W, 3) envmap. eta = 1/ior is computed in
+// float32 from the float32 ior, as the JAX kernel does.
 //
 // Bound on the H100: traversal latency (dependent table loads, divergent
-// visit sets across a warp) in the early rounds; in the late rounds most
-// lanes are dead, and the round is bound by its state traffic: 32 bytes
-// read and up to 12 + 64 bytes written per lane. This first version is the
-// plain mapping (128-thread blocks, state straight from global memory);
-// compacting live lanes is later work. The traversal is traverse_f2b.cuh's,
-// in its flat or supers instance as the scene has super boxes or not.
+// visit sets across a warp) while many lanes live; the static layout then
+// spends its late rounds on dead lanes, each still reading 32 bytes of
+// state and writing 12 + 64. The compacted layout moves only live lanes:
+// 36 bytes in, 12 of radiance and 36 per live child out, and a round with
+// no live lane is a launch whose warps exit at once. Children are
+// appended with one atomicAdd per warp (ballots give each lane its
+// offset), so a warp's children land contiguously and the writes stay
+// coalesced. Radiance goes in by a plain add where a round has one lane
+// per pixel (round 0) and by compare-and-swap additions elsewhere; these
+// commute, so a pixel with at most two misses in a round sums as the
+// static layout's (0 + a + b); beyond two the order of the additions is
+// not fixed. The traversal is traverse_f2b.cuh's, in its flat or supers
+// instance as the scene has super boxes or not.
 
 #include <cuda_runtime.h>
 
@@ -48,70 +67,211 @@
 enum RtRoundVariant { RT_ROUND_FULL = 0, RT_ROUND_CHILDREN = 1,
                       RT_ROUND_RADIANCE = 2 };
 
+// What a round reads besides the lane state.
+struct RtRoundArgs {
+  RtScene scene;
+  const float* env;
+  int env_h, env_w;
+  float tmin, tmax, ior, r0;
+};
+
+// One lane's results. A dead child has cull 0, weight 0, d = (0, 1, 0).
+struct RtLaneOut {
+  float cr, cg, cb;    // weighted env radiance of a live miss, else 0
+  float hx, hy, hz;    // the children's origin: the hit point, else o
+  float3 tr, fl;       // refraction / reflection directions
+  float t_cull, t_wgt, f_cull, f_wgt;
+};
+
+// The round's work for lane i of an SoA state of row length `stride`.
+template <int V, int WALK>
+__device__ __forceinline__ RtLaneOut rt_round_lane(const RtRoundArgs& a,
+                                                   const float* state,
+                                                   size_t stride, int i) {
+  const float ox = state[i], oy = state[stride + i],
+              oz = state[2 * stride + i];
+  const float dx = state[3 * stride + i], dy = state[4 * stride + i],
+              dz = state[5 * stride + i];
+  const float cull = state[6 * stride + i], wgt = state[7 * stride + i];
+
+  RtLaneOut r;
+  // Dead lanes (cull == 0) come back as a miss with idx -1.
+  const RtHit h = rt_closest_hit<WALK>(a.scene, ox, oy, oz, dx, dy, dz, cull,
+                                       a.tmin, a.tmax,
+                                       V == RT_ROUND_RADIANCE);
+  const bool hit = h.idx >= 0;
+  r.cr = r.cg = r.cb = 0.0f;
+  if (cull != 0.0f && !hit && wgt > 0.0f) {  // miss shader (hlsl:127-137)
+    const int f = rt_env_texel(dx, dy, dz, a.env_h, a.env_w);
+    r.cr = wgt * __ldg(a.env + 3 * f);
+    r.cg = wgt * __ldg(a.env + 3 * f + 1);
+    r.cb = wgt * __ldg(a.env + 3 * f + 2);
+  }
+  // Children. Defaults: a dead ray at the parent's origin pointing +y.
+  r.hx = ox; r.hy = oy; r.hz = oz;
+  r.tr = make_float3(0.0f, 1.0f, 0.0f);
+  r.fl = r.tr;
+  r.t_cull = r.t_wgt = r.f_cull = r.f_wgt = 0.0f;
+  if (V == RT_ROUND_RADIANCE || !hit) return r;
+  const bool outside = cull > 0.0f;
+  const RtSurface sf = rt_surface(h, ox, oy, oz, dx, dy, dz, outside);
+  const float fres = rt_fresnel(sf, a.r0 * (1.0f - a.r0));
+  r.hx = sf.hx; r.hy = sf.hy; r.hz = sf.hz;
+  if (rt_refract(sf, dx, dy, dz, outside ? 1.0f / a.ior : a.ior, &r.tr)) {
+    r.t_cull = -cull;
+    r.t_wgt = wgt * (1.0f - fres);
+  }
+  if (V == RT_ROUND_FULL) {
+    r.fl = rt_reflect(sf, dx, dy, dz);
+    r.f_cull = cull;
+    r.f_wgt = wgt * fres;
+  }
+  return r;
+}
+
+__device__ __forceinline__ void rt_put_lane(float* state, size_t stride,
+                                            size_t i, float hx, float hy,
+                                            float hz, float3 d, float cull,
+                                            float wgt) {
+  const float v[8] = {hx, hy, hz, d.x, d.y, d.z, cull, wgt};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) state[k * stride + i] = v[k];
+}
+
+// Adds v into *p in IEEE arithmetic. Where the round has at most one lane
+// per pixel (`lone`: static width <= pixels, as in round 0), a plain load
+// and store. Otherwise a compare-and-swap loop: a float atomic add (PTX
+// atom.add.f32) flushes subnormal operands and results to zero, the value
+// already in *p included, so it would drop a subnormal radiance (a weight
+// underflowing toward 0 times the map) that another lane of the pixel
+// added first. The first swap assumes the zeroed accumulator, so the
+// first miss of a pixel in a round costs one atomic.
+__device__ __forceinline__ void rt_add_radiance(float* p, float v,
+                                                bool lone) {
+  if (v == 0.0f) return;
+  if (lone) {
+    *p += v;
+    return;
+  }
+  int* q = reinterpret_cast<int*>(p);
+  int seen = 0;
+  int old = atomicCAS(q, seen, __float_as_int(v));
+  while (old != seen) {
+    seen = old;
+    old = atomicCAS(q, seen, __float_as_int(__int_as_float(seen) + v));
+  }
+}
+
+// Static layout: lane i of w; rad (w, 3); next (8, 2w) | (8, w) | unused.
 template <int V, int WALK>
 __global__ void __launch_bounds__(128) rt_round_kernel(
-    float tmin, float tmax, float ior, float r0,
-    const float* __restrict__ tri, const float* __restrict__ norm,
-    const float* __restrict__ supers, const float* __restrict__ clusters,
-    const float* __restrict__ subs, const float* __restrict__ env,
-    const float* __restrict__ state, int w, float* __restrict__ rad,
-    float* __restrict__ next, int n_supers, int n_clusters, int cluster_size,
-    int sub_tris, int env_h, int env_w) {
+    RtRoundArgs a, const float* __restrict__ state, int w,
+    float* __restrict__ rad, float* __restrict__ next) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= w) return;
   const size_t W = (size_t)w;
-  const float ox = state[i], oy = state[W + i], oz = state[2 * W + i];
-  const float dx = state[3 * W + i], dy = state[4 * W + i],
-              dz = state[5 * W + i];
-  const float cull = state[6 * W + i], wgt = state[7 * W + i];
-
-  // Dead lanes (cull == 0) come back as a miss with idx -1.
-  const RtScene scene{supers, clusters, subs, tri, norm, n_supers,
-                      n_clusters, cluster_size / sub_tris, sub_tris};
-  const RtHit h = rt_closest_hit<WALK>(scene, ox, oy, oz, dx, dy, dz, cull,
-                                       tmin, tmax, V == RT_ROUND_RADIANCE);
-  const bool hit = h.idx >= 0;
-  float cr = 0.0f, cg = 0.0f, cb = 0.0f;
-  if (cull != 0.0f && !hit && wgt > 0.0f) {  // miss shader (hlsl:127-137)
-    const int f = rt_env_texel(dx, dy, dz, env_h, env_w);
-    cr = wgt * __ldg(env + 3 * f);
-    cg = wgt * __ldg(env + 3 * f + 1);
-    cb = wgt * __ldg(env + 3 * f + 2);
-  }
-  rad[3 * (size_t)i] = cr;
-  rad[3 * (size_t)i + 1] = cg;
-  rad[3 * (size_t)i + 2] = cb;
+  const RtLaneOut r = rt_round_lane<V, WALK>(a, state, W, i);
+  rad[3 * (size_t)i] = r.cr;
+  rad[3 * (size_t)i + 1] = r.cg;
+  rad[3 * (size_t)i + 2] = r.cb;
   if (V == RT_ROUND_RADIANCE) return;
-
-  // Children. Defaults: a dead ray at the parent's origin pointing +y.
   const size_t WO = V == RT_ROUND_FULL ? 2 * W : W;
-  float hx = ox, hy = oy, hz = oz;
-  float3 tr = make_float3(0.0f, 1.0f, 0.0f), fl = tr;
-  float t_cull = 0.0f, t_wgt = 0.0f, f_cull = 0.0f, f_wgt = 0.0f;
-  if (hit) {
-    const bool outside = cull > 0.0f;
-    const RtSurface sf = rt_surface(h, ox, oy, oz, dx, dy, dz, outside);
-    const float fres = rt_fresnel(sf, r0 * (1.0f - r0));
-    hx = sf.hx; hy = sf.hy; hz = sf.hz;
-    if (rt_refract(sf, dx, dy, dz, outside ? 1.0f / ior : ior, &tr)) {
-      t_cull = -cull;
-      t_wgt = wgt * (1.0f - fres);
+  rt_put_lane(next, WO, i, r.hx, r.hy, r.hz, r.tr, r.t_cull, r.t_wgt);
+  if (V == RT_ROUND_FULL)
+    rt_put_lane(next, WO, W + i, r.hx, r.hy, r.hz, r.fl, r.f_cull, r.f_wgt);
+}
+
+// Compacted layout: the first *count lanes of an SoA state of row length
+// cap, with their slots; radiance added into rad (n_pix, 3) at slot %
+// n_pix (the slots are distinct and below `width`), live lanes counted
+// into pixel_rays (n_pix,) when it is not null;
+// live children appended to next (8, next_cap) / next_slot / *next_count.
+// A warp-uniform loop over the queue in steps of the grid's threads.
+template <int V, int WALK>
+__global__ void __launch_bounds__(128) rt_round_queue_kernel(
+    RtRoundArgs a, const float* __restrict__ state,
+    const int* __restrict__ slot, const int* __restrict__ count_in, int cap,
+    int width, int n_pix, float* __restrict__ rad, int* __restrict__ pixel_rays,
+    float* __restrict__ next, int* __restrict__ next_slot,
+    int* __restrict__ next_count, int next_cap) {
+  const int count = *count_in;
+  // Slots are distinct and below `width`, so a pixel has at most one lane.
+  const bool lone = width <= n_pix;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int step = gridDim.x * blockDim.x;
+  for (int first = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       first < count; first += step) {
+    const int i = first + lane;
+    const bool valid = i < count;
+    RtLaneOut r{};
+    int s = 0;
+    if (valid) {
+      s = slot[i];
+      r = rt_round_lane<V, WALK>(a, state, (size_t)cap, i);
+      const int p = s % n_pix;
+      rt_add_radiance(rad + 3 * (size_t)p, r.cr, lone);
+      rt_add_radiance(rad + 3 * (size_t)p + 1, r.cg, lone);
+      rt_add_radiance(rad + 3 * (size_t)p + 2, r.cb, lone);
+      if (pixel_rays != nullptr) atomicAdd(pixel_rays + p, 1);
     }
-    if (V == RT_ROUND_FULL) {
-      fl = rt_reflect(sf, dx, dy, dz);
-      f_cull = cull;
-      f_wgt = wgt * fres;
+    if (V == RT_ROUND_RADIANCE) continue;
+    const bool t_live = valid && r.t_cull != 0.0f;
+    const bool f_live = V == RT_ROUND_FULL && valid && r.f_cull != 0.0f;
+    const unsigned mt = __ballot_sync(0xffffffffu, t_live);
+    const unsigned mf = __ballot_sync(0xffffffffu, f_live);
+    const int nt = __popc(mt), total = nt + __popc(mf);
+    if (total == 0) continue;
+    int base = 0;
+    if (lane == 0) base = atomicAdd(next_count, total);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    // A count past the capacity is a fault the caller sees in next_count;
+    // nothing is written past the buffers.
+    const int pt = base + __popc(mt & below);
+    const int pf = base + nt + __popc(mf & below);
+    if (t_live && pt < next_cap) {
+      rt_put_lane(next, (size_t)next_cap, pt, r.hx, r.hy, r.hz, r.tr,
+                  r.t_cull, r.t_wgt);
+      next_slot[pt] = s;
     }
-  }
-  const float ts[8] = {hx, hy, hz, tr.x, tr.y, tr.z, t_cull, t_wgt};
-#pragma unroll
-  for (int k = 0; k < 8; ++k) next[k * WO + i] = ts[k];
-  if (V == RT_ROUND_FULL) {
-    const float fs[8] = {hx, hy, hz, fl.x, fl.y, fl.z, f_cull, f_wgt};
-#pragma unroll
-    for (int k = 0; k < 8; ++k) next[k * WO + W + i] = fs[k];
+    if (f_live && pf < next_cap) {
+      rt_put_lane(next, (size_t)next_cap, pf, r.hx, r.hy, r.hz, r.fl,
+                  r.f_cull, r.f_wgt);
+      next_slot[pf] = s + width;
+    }
   }
 }
+
+static RtRoundArgs rt_round_args(float tmin, float tmax, float ior, float r0,
+                                 const float* tri, const float* norm,
+                                 const float* supers, const float* clusters,
+                                 const float* subs, const float* env,
+                                 int n_supers, int n_clusters,
+                                 int cluster_size, int sub_tris, int env_h,
+                                 int env_w) {
+  return RtRoundArgs{
+      RtScene{supers, clusters, subs, tri, norm, n_supers, n_clusters,
+              cluster_size / sub_tris, sub_tris},
+      env, env_h, env_w, tmin, tmax, ior, r0};
+}
+
+// Instantiates LAUNCH(V, WALK) for the variant and the scene's walk.
+#define RT_ROUND_DISPATCH(LAUNCH)                                            \
+  switch (variant) {                                                         \
+    case RT_ROUND_FULL:                                                      \
+      if (n_supers > 0) LAUNCH(RT_ROUND_FULL, RT_WALK_SUPERS);               \
+      else LAUNCH(RT_ROUND_FULL, RT_WALK_FLAT);                              \
+      break;                                                                 \
+    case RT_ROUND_CHILDREN:                                                  \
+      if (n_supers > 0) LAUNCH(RT_ROUND_CHILDREN, RT_WALK_SUPERS);           \
+      else LAUNCH(RT_ROUND_CHILDREN, RT_WALK_FLAT);                          \
+      break;                                                                 \
+    case RT_ROUND_RADIANCE:                                                  \
+      if (n_supers > 0) LAUNCH(RT_ROUND_RADIANCE, RT_WALK_SUPERS);           \
+      else LAUNCH(RT_ROUND_RADIANCE, RT_WALK_FLAT);                          \
+      break;                                                                 \
+    default: return (int)cudaErrorInvalidValue;                              \
+  }
 
 // rad: (w, 3). next: (8, 2w) for the full variant, (8, w) for children
 // only, unused (may be null) for radiance only. Returns a cudaError_t.
@@ -124,26 +284,58 @@ extern "C" int rt_round(float tmin, float tmax, float ior, float r0,
                         int cluster_size, int sub_tris, int env_h, int env_w,
                         void* stream) {
   if (w <= 0) return 0;
+  const RtRoundArgs a =
+      rt_round_args(tmin, tmax, ior, r0, tri, norm, supers, clusters, subs,
+                    env, n_supers, n_clusters, cluster_size, sub_tris, env_h,
+                    env_w);
   const int block = 128;
   const int grid = (w + block - 1) / block;
   cudaStream_t s = (cudaStream_t)stream;
-#define RT_ROUND_LAUNCH(V)                                                  \
-  if (n_supers > 0)                                                         \
-    RT_ROUND_LAUNCH_WALK(V, RT_WALK_SUPERS);                                \
-  else                                                                      \
-    RT_ROUND_LAUNCH_WALK(V, RT_WALK_FLAT)
-#define RT_ROUND_LAUNCH_WALK(V, WALK)                                       \
-  rt_round_kernel<V, WALK><<<grid, block, 0, s>>>(                          \
-      tmin, tmax, ior, r0, tri, norm, supers, clusters, subs, env, state,   \
-      w, rad, next, n_supers, n_clusters, cluster_size, sub_tris, env_h,     \
-      env_w)
-  switch (variant) {
-    case RT_ROUND_FULL: RT_ROUND_LAUNCH(RT_ROUND_FULL); break;
-    case RT_ROUND_CHILDREN: RT_ROUND_LAUNCH(RT_ROUND_CHILDREN); break;
-    case RT_ROUND_RADIANCE: RT_ROUND_LAUNCH(RT_ROUND_RADIANCE); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define RT_ROUND_LAUNCH(V, WALK) \
+  rt_round_kernel<V, WALK><<<grid, block, 0, s>>>(a, state, w, rad, next)
+  RT_ROUND_DISPATCH(RT_ROUND_LAUNCH)
 #undef RT_ROUND_LAUNCH
-#undef RT_ROUND_LAUNCH_WALK
+  return (int)cudaGetLastError();
+}
+
+// The compacted round over the queue (state (8, cap), slot (cap,), *count)
+// of a round of static width `width` (<= cap): rad (n_pix, 3) accumulates,
+// pixel_rays (n_pix,) counts when not null, and live children are appended
+// to (next (8, next_cap), next_slot (next_cap,), *next_count) for the full
+// and children variants (unused, may be null, for radiance only). One
+// launch even when the queue is empty. The host does not know the count,
+// so the grid covers `width` lanes, the most the queue can hold, up to
+// `max_blocks` blocks (the caller passes 32 per SM: 4,224 on the H100);
+// warps past the count exit at once. Measured against a grid of exactly
+// `width` lanes (empty rounds then retire ~24 k blocks, ~0.02 ms) and an
+// occupancy-sized grid (the grid-stride loop balances the divergent
+// traversal worse: +10% at the large scene), this was fastest at both
+// cells (PERF.md). Returns a cudaError_t.
+extern "C" int rt_round_queue(float tmin, float tmax, float ior, float r0,
+                              const float* tri, const float* norm,
+                              const float* supers, const float* clusters,
+                              const float* subs, const float* env,
+                              const float* state, const int* slot,
+                              const int* count, int cap, int width, int n_pix,
+                              float* rad, int* pixel_rays, float* next,
+                              int* next_slot, int* next_count, int next_cap,
+                              int variant, int n_supers, int n_clusters,
+                              int cluster_size, int sub_tris, int env_h,
+                              int env_w, int max_blocks, void* stream) {
+  if (max_blocks <= 0) return (int)cudaErrorInvalidValue;
+  const RtRoundArgs a =
+      rt_round_args(tmin, tmax, ior, r0, tri, norm, supers, clusters, subs,
+                    env, n_supers, n_clusters, cluster_size, sub_tris, env_h,
+                    env_w);
+  const int block = 128;
+  const int full = width > block ? (width + block - 1) / block : 1;
+  const int grid = full < max_blocks ? full : max_blocks;
+  cudaStream_t s = (cudaStream_t)stream;
+#define RT_QUEUE_LAUNCH(V, WALK)                                            \
+  rt_round_queue_kernel<V, WALK><<<grid, block, 0, s>>>(                    \
+      a, state, slot, count, cap, width, n_pix, rad, pixel_rays, next,      \
+      next_slot, next_count, next_cap)
+  RT_ROUND_DISPATCH(RT_QUEUE_LAUNCH)
+#undef RT_QUEUE_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,8 @@ Meshes and env maps come from `io.primitives` (numpy, e.g.
 ``make_icosphere``, ``make_gradient_envmap``); this
 module writes them in the formats the CLI reads: a Wavefront OBJ with
 ``v``/``vt``/``vn``/``f v/vt/vn`` lines (the reference's parser needs all
-three indices per corner) and a Radiance ``.hdr``.
+three indices per corner) and a Radiance ``.hdr``. `paired_miss_lanes`
+is a round-kernel state for checking how a pixel's misses are summed.
 """
 
 from __future__ import annotations
@@ -32,6 +33,24 @@ def write_obj(path: str, mesh: MeshData) -> None:
     lines += [f"f {i}/1/{i} {j}/1/{j} {k}/1/{k}" for i, j, k in inv]
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
+
+
+def paired_miss_lanes(p: int, seed: int = 0) -> np.ndarray:
+    """(8, 2p) float32 round-kernel lane state (``ox oy oz dx dy dz cull
+    wgt``) of 2p live rays that miss every mesh within radius 5 of the
+    origin: from (0, 0, 6), outward in directions jittered about +z. With
+    pixel = slot % p, lanes i and p + i are two misses of pixel i: the
+    first p weigh 1e-39, so their radiance is subnormal, the last p 2e-37,
+    a small normal radiance beside which the subnormal still counts."""
+    rng = np.random.default_rng(seed)
+    d = np.concatenate([rng.uniform(-1.0, 1.0, (2, 2 * p)),
+                        np.ones((1, 2 * p))])
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    o = np.zeros((3, 2 * p))
+    o[2] = 6.0
+    wgt = np.repeat([1e-39, 2e-37], p)
+    return np.ascontiguousarray(np.concatenate(
+        [o, d, np.ones((1, 2 * p)), wgt[None]]), np.float32)
 
 
 def write_scene(directory: str, name: str, mesh: MeshData,

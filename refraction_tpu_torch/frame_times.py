@@ -8,6 +8,15 @@ prints one JSON line for the package it imports:
 - ``kernel_ms``: mean ms per `fused_radiance` launch over 20 back-to-back
   launches (CUDA events), for each of 5 rounds after a warm-up, and their
   median;
+- ``wavefront_ms``: the same for `integrator.render_pixels_mega` (the
+  per-round wavefront, no stats) on the frame's primary rays: mean ms per
+  call over 20 back-to-back calls, for each of 5 rounds, and their median.
+  Where the host takes longer to enqueue a frame than the card to run it,
+  this is the host's time;
+- ``wavefront_device_ms``: the card's time per `render_pixels_mega` call
+  (`timing.device_ms`: each call queued behind a spin kernel, so the card
+  never waits for the host), mean over 20 calls, for each of 5 rounds, and
+  their median;
 - ``loop``: medians over 30 frames of the CLI loop (after 3 warm-up
   frames) of each step — ``orbit_camera`` and ``build_scalars`` on the host
   clock; the frame kernel, and ``to_u8`` with its copy to the host, on CUDA
@@ -20,10 +29,12 @@ prints one JSON line for the package it imports:
 
 It uses only the package's long-standing entry points (``scene.load_scene``,
 ``scene.scene_from_jax``, ``kernels.framekernel.build_scalars`` /
-``fused_radiance``, ``run.to_u8`` / ``write_png``), so the same file,
-copied beside another checkout of the package, times that checkout's
-kernel: comparisons run both in one call, in turns. ``--device cuda``
-only: there is no CPU path.
+``fused_radiance``, ``camera.generate_rays``,
+``integrator.render_pixels_mega``, ``run.to_u8`` / ``write_png``) and the
+measurement helpers of ``timing.py``, so the same two files, copied beside
+another checkout of the package, time that checkout's kernels:
+comparisons run both in one call, in turns. ``--device cuda`` only:
+there is no CPU path.
 """
 
 from __future__ import annotations
@@ -38,12 +49,13 @@ import time
 import numpy as np
 import torch
 
-from refraction_tpu_torch.camera import orbit_camera
+from refraction_tpu_torch.camera import generate_rays, orbit_camera
+from refraction_tpu_torch.integrator import render_pixels_mega
 from refraction_tpu_torch.kernels.framekernel import build_scalars, fused_radiance
 from refraction_tpu_torch.render import sample_offsets
 from refraction_tpu_torch.run import build_config, to_u8, write_png
 from refraction_tpu_torch.scene import load_scene, scene_from_jax
-from refraction_tpu_torch.timing import card_line, require_device
+from refraction_tpu_torch.timing import card_line, device_ms, require_device
 
 ROUNDS, LAUNCHES = 5, 20
 WARM_FRAMES, FRAMES = 3, 30
@@ -53,9 +65,10 @@ def _pct(xs, q):
     return float(np.percentile(np.asarray(xs), q))
 
 
-def kernel_ms(scene, cfg, scalars) -> list[float]:
-    """Mean ms per launch of each of ROUNDS rounds of LAUNCHES launches."""
-    fused_radiance(scene, scalars, cfg)
+def back_to_back_ms(fn) -> list[float]:
+    """Mean ms per call of ``fn`` in each of ROUNDS rounds of LAUNCHES
+    back-to-back calls (CUDA events), after one warm-up call."""
+    fn()
     torch.cuda.synchronize()
     out = []
     for _ in range(ROUNDS):
@@ -63,7 +76,7 @@ def kernel_ms(scene, cfg, scalars) -> list[float]:
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
         for _ in range(LAUNCHES):
-            fused_radiance(scene, scalars, cfg)
+            fn()
         e1.record()
         torch.cuda.synchronize()
         out.append(e0.elapsed_time(e1) / LAUNCHES)
@@ -124,13 +137,24 @@ def main(argv=None) -> int:
     scene = scene_from_jax(load_scene(cfg)[0], device)
     scalars = build_scalars(orbit_camera(0.01, cfg), cfg,
                             sample_offsets(cfg.spp), device)
-    ms = kernel_ms(scene, cfg, scalars)
+    ms = back_to_back_ms(lambda: fused_radiance(scene, scalars, cfg))
+    o, d = generate_rays(orbit_camera(0.01, cfg), cfg.width, cfg.height,
+                         device)
+    wave = back_to_back_ms(lambda: render_pixels_mega(scene, o, d, cfg))
+    wave_dev = [statistics.mean(
+        device_ms(lambda: render_pixels_mega(scene, o, d, cfg), device)
+        for _ in range(LAUNCHES)) for _ in range(ROUNDS)]
     with tempfile.TemporaryDirectory() as tmp:
         loop = loop_breakdown(scene, cfg, device, tmp)
     print(json.dumps({"label": args.label,
                       "shape": [cfg.width, cfg.height, cfg.max_refract_depth,
                                 cfg.spp],
                       "kernel_ms": ms, "kernel_ms_median": statistics.median(ms),
+                      "wavefront_ms": wave,
+                      "wavefront_ms_median": statistics.median(wave),
+                      "wavefront_device_ms": wave_dev,
+                      "wavefront_device_ms_median": statistics.median(
+                          wave_dev),
                       "loop": loop, "card": card_line(device)}), flush=True)
     return 0
 

@@ -13,9 +13,11 @@ This is the plain version of the CUDA frame kernel
 
 `render_pixels_mega` is the per-round wavefront (port of
 `refraction_tpu.integrator.render_pixels_mega`): the same tree, one
-round-kernel launch per bounce round (kernels/megakernel.py) over an
-(8, W) lane state, with the children written by the kernel in the
-layout above.
+round-kernel launch per bounce round (kernels/megakernel.py), carrying
+only live lanes from one round to the next. Each queued lane keeps its
+slot in the static layout above, so its pixel, the stats and the
+per-pixel sums are the static layout's. `static_wavefront` runs the same
+rounds in the static layout, as the reference it is held against.
 """
 
 from __future__ import annotations
@@ -27,7 +29,13 @@ import torch
 
 from refraction_tpu_torch.config import RenderConfig
 from refraction_tpu_torch.camera import CameraFrame, generate_rays
-from refraction_tpu_torch.kernels.megakernel import STATE_ROWS, mega_round
+from refraction_tpu_torch.kernels.megakernel import (
+    STATE_ROWS,
+    LaneQueue,
+    QueueRound,
+    empty_queue,
+    mega_round,
+)
 from refraction_tpu_torch.ops.intersect import interpolate_normal, recompute_uv
 from refraction_tpu_torch.ops.shade import (
     dot3,
@@ -187,59 +195,126 @@ def round_params(cfg: RenderConfig, count: int):
     return limits, want_reflect, want_children
 
 
+def static_widths(cfg: RenderConfig, n: int) -> list[int]:
+    """The static lane width of each bounce round: N, doubled after each
+    round that emits reflection children."""
+    widths = [n]
+    for count in range(cfg.max_refract_depth):
+        widths.append(widths[-1] * (2 if round_params(cfg, count)[1] else 1))
+    return widths
+
+
 def wavefront_rounds(scene, origins: torch.Tensor, dirs: torch.Tensor,
                      cfg: RenderConfig):
     """The bounce-round schedule of `render_pixels_mega`: yields, per round,
-    ``(state, run)``, the round's (8, W) input state and a no-argument call
-    of `mega_round` on it that returns its `RoundOut`.
+    ``(queue, out, run)``: the round's `LaneQueue` of live lanes (round 0:
+    all N primaries, slot i = i), the next round's queue (None after the
+    last round) with its count 0, and ``run(radiance, pixel_rays=None)``,
+    which runs the round (`mega_round_queue`, through one `QueueRound` for
+    the frame) on ``queue``, appending the live children to ``out``.
 
-    The consumer calls ``run`` at least once before it asks for the next
-    round; the next state is the children of the last call's result."""
-    state = initial_state(origins, dirs)
-    for count in range(cfg.max_refract_depth + 1):
+    The consumer calls ``run`` once before it asks for the next round. A
+    consumer that calls it again (`profile_rounds`) zeroes ``out.count``
+    before each further call, or the children are appended twice. Two
+    ping-pong buffers of the largest static width hold the queues; each
+    queue's count is one int32 of a device array, read by no host code
+    here."""
+    n = origins.shape[0]
+    dev = origins.device
+    widths = static_widths(cfg, n)
+    counts = torch.zeros(len(widths), dtype=torch.int32, device=dev)
+    counts[:1].fill_(n)  # a fill kernel; item assignment would sync
+    bufs = [empty_queue(max(widths), dev) for _ in range(min(2, len(widths)))]
+    state, slot = bufs[0]
+    state[0:3, :n] = origins.t()
+    state[3:6, :n] = dirs.t()
+    state[6:8, :n] = 1.0
+    torch.arange(n, out=slot[:n])
+    round_fn = QueueRound(scene, dev)
+    for count, width in enumerate(widths):
         limits, want_reflect, want_children = round_params(cfg, count)
-        last = []
+        queue = LaneQueue(*bufs[count % 2], counts[count:count + 1], width)
+        out = (LaneQueue(*bufs[(count + 1) % 2],
+                         counts[count + 1:count + 2], widths[count + 1])
+               if want_children else None)
 
-        def run():
-            last[:] = [mega_round(scene, state, limits, want_reflect,
-                                  want_children)]
-            return last[0]
+        def run(radiance, pixel_rays=None, queue=queue, out=out,
+                limits=limits, want_reflect=want_reflect,
+                want_children=want_children):
+            round_fn(queue, limits, want_reflect, want_children, radiance,
+                     pixel_rays, out)
 
-        yield state, run
+        yield queue, out, run
         if not want_children:
             return  # hits at the cap contribute black (RayTracing.hlsl:82)
-        state = last[0].children
 
 
 def render_pixels_mega(scene, origins: torch.Tensor, dirs: torch.Tensor,
                        cfg: RenderConfig, collect_stats: bool = False):
-    """Trace N primary rays to completion, one `mega_round` call per bounce
-    round (`wavefront_rounds`); returns (N, 3) linear radiance.
+    """Trace N primary rays to completion, one compacted round
+    (`mega_round_queue`) per bounce round (`wavefront_rounds`); returns
+    (N, 3) linear radiance.
 
-    On CUDA tensors each round is one round-kernel launch; on CPU tensors
-    `mega_round` takes its plain version. N may be any positive count:
-    there is no tile padding. With ``collect_stats`` returns (radiance,
+    On CUDA tensors each round is one round-kernel launch and nothing
+    waits for the host; on CPU tensors the rounds take their plain
+    version. N may be any positive count. Each round's miss radiance is
+    summed per pixel into its own zeroed (N, 3) buffer, then the rounds
+    are added in order, ``radiance + round sum``, as the static layout
+    associates them. With ``collect_stats`` returns (radiance,
     {'rays_traced': int64 scalar tensor, 'slot_rounds': int, 'pixel_rays':
-    (N,) int32}): the live lanes (cull != 0) entering each round, summed
-    on the device, the lanes of every round, and the live lanes per pixel
-    (lane i belongs to pixel i % N).
+    (N,) int32}): the queue counts summed on the device (the live lanes
+    entering each round), the static widths of every round, and the
+    queued lanes per pixel.
     """
     n = origins.shape[0]
     dev = origins.device
+    rounds = cfg.max_refract_depth + 1
+    sums = torch.zeros(rounds, n, 3, dtype=torch.float32, device=dev)
+    pixel_rays = (torch.zeros(n, dtype=torch.int32, device=dev)
+                  if collect_stats else None)
+    counts = []
+    for k, (queue, _, run) in enumerate(wavefront_rounds(scene, origins, dirs,
+                                                         cfg)):
+        run(sums[k], pixel_rays)
+        counts.append(queue.count)
+    radiance = sums[0]
+    for k in range(1, rounds):
+        radiance = radiance + sums[k]
+    if collect_stats:
+        return radiance, {
+            "rays_traced": torch.cat(counts).sum(dtype=torch.int64),
+            "slot_rounds": sum(static_widths(cfg, n)),
+            "pixel_rays": pixel_rays}
+    return radiance
+
+
+def static_wavefront(scene, origins: torch.Tensor, dirs: torch.Tensor,
+                     cfg: RenderConfig, collect_stats: bool = False):
+    """The wavefront in the static layout, the reference `render_pixels_mega`
+    is held against (the JAX `render_pixels_mega`'s layout): every round's
+    whole (8, W) state through `mega_round`, dead lanes included, and its
+    radiance summed over each pixel's lanes. Returns what
+    `render_pixels_mega` returns, the stats counted from the states: live
+    lanes per round and per pixel, and the state widths."""
+    n = origins.shape[0]
+    dev = origins.device
+    state = initial_state(origins, dirs)
     radiance = torch.zeros(n, 3, dtype=torch.float32, device=dev)
-    rays_traced = torch.zeros((), dtype=torch.int64, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
     pixel_rays = torch.zeros(n, dtype=torch.int32, device=dev)
     slot_rounds = 0
-    for state, run in wavefront_rounds(scene, origins, dirs, cfg):
+    for count in range(cfg.max_refract_depth + 1):
+        limits, want_reflect, want_children = round_params(cfg, count)
         if collect_stats:
             live = state[6] != 0
-            rays_traced = rays_traced + live.sum()
+            rays = rays + live.sum()
             pixel_rays = pixel_rays + live.reshape(-1, n).sum(
                 dim=0, dtype=torch.int32)
-            slot_rounds += int(state.shape[1])
-        radiance = radiance + run().radiance.reshape(-1, n, 3).sum(dim=0)
+            slot_rounds += state.shape[1]
+        res = mega_round(scene, state, limits, want_reflect, want_children)
+        radiance = radiance + res.radiance.reshape(-1, n, 3).sum(dim=0)
+        state = res.children
     if collect_stats:
-        return radiance, {"rays_traced": rays_traced,
-                          "slot_rounds": slot_rounds,
+        return radiance, {"rays_traced": rays, "slot_rounds": slot_rounds,
                           "pixel_rays": pixel_rays}
     return radiance

@@ -54,6 +54,13 @@ SIGNATURES = {
     # env_h, env_w, stream
     "rt_round": [_F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _P],
+    # tmin, tmax, ior, r0, tri, norm, supers, clusters, subs, env, state,
+    # slot, count, cap, width, n_pix, rad, pixel_rays, next, next_slot,
+    # next_count, next_cap, variant, n_supers, n_clusters, cluster_size,
+    # sub_tris, env_h, env_w, max_blocks, stream
+    "rt_round_queue": [_F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _P],
     # tri, o, d, cull, r, v, t_out, i_out, stream
     "rt_mt_visits": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
     # wmat, rhs, cull, r, v, t_out, i_out, stream

@@ -20,6 +20,16 @@ or the parent's origin where it did not hit.
 
 ``mega_round`` launches the kernel for CUDA tensors and takes the plain
 version, ``mega_round_plain``, for CPU tensors.
+
+``mega_round_queue`` is the same round over a compacted queue of live
+lanes (`LaneQueue`), the wavefront's layout: each queued lane carries its
+slot id, its index in the static layout above (pixel = slot % N). Its
+miss radiance is added into an (N, 3) accumulator at its pixel, and only
+its live children are appended to the next queue, the refraction child
+with slot s and the reflection child with s + W (W = the round's static
+width). On CUDA the kernel reads the live count on the device, so no
+round waits for the host; ``mega_round_queue_plain`` is its plain
+version, taken for CPU tensors.
 """
 
 from __future__ import annotations
@@ -43,6 +53,9 @@ from refraction_tpu_torch.ops.shade import (
 STATE_ROWS = 8  # ox oy oz dx dy dz cull wgt
 # Variant codes of rt_round (RtRoundVariant in round.cu).
 _FULL, _CHILDREN, _RADIANCE = 0, 1, 2
+# Grid cap of the compacted round, in 128-thread blocks per SM (PERF.md
+# PR 5: faster than an uncapped or an occupancy-sized grid).
+BLOCKS_PER_SM = 32
 
 
 class RoundOut(NamedTuple):
@@ -50,6 +63,25 @@ class RoundOut(NamedTuple):
 
     radiance: torch.Tensor          # (W, 3) weighted env radiance of misses
     children: torch.Tensor | None   # (8, 2W) | (8, W) next state, or None
+
+
+class LaneQueue(NamedTuple):
+    """The input or output of one compacted round: lanes ``[0, count)`` of
+    ``state`` and ``slot`` are queued, in no fixed order. Their slots are
+    distinct and below ``width``, as the wavefront makes them; the CUDA
+    kernel relies on it (a round of width <= N adds radiance without
+    atomics)."""
+
+    state: torch.Tensor   # (8, cap) float32 lane state, row length cap
+    slot: torch.Tensor    # (cap,) int32: each lane's index in the static layout
+    count: torch.Tensor   # (1,) int32 on the lanes' device: lanes queued
+    width: int            # the round's static width W (<= cap)
+
+
+def empty_queue(cap: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Uninitialized (state (8, cap), slot (cap,)) buffers of a queue."""
+    return (torch.empty(STATE_ROWS, cap, dtype=torch.float32, device=device),
+            torch.empty(cap, dtype=torch.int32, device=device))
 
 
 def _check_state(state: torch.Tensor) -> None:
@@ -157,3 +189,160 @@ def mega_round(scene, state: torch.Tensor, limits: Sequence[float],
 
 
 mega_round.launches = 0
+
+
+def _check_queue(name: str, q: LaneQueue, device: torch.device) -> None:
+    cap = q.state.shape[1] if q.state.dim() == 2 else -1
+    if (q.state.dim() != 2 or q.state.shape[0] != STATE_ROWS
+            or q.state.dtype != torch.float32 or not q.state.is_contiguous()
+            or q.slot.shape != (cap,) or q.slot.dtype != torch.int32
+            or not q.slot.is_contiguous() or q.count.shape != (1,)
+            or q.count.dtype != torch.int32 or not 0 <= q.width <= cap
+            or {q.state.device, q.slot.device, q.count.device} != {device}):
+        raise ValueError(
+            f"{name}: want contiguous float32 ({STATE_ROWS}, cap) state, "
+            f"int32 (cap,) slot, int32 (1,) count on {device} and width <= "
+            f"cap, got {q.state.dtype} {tuple(q.state.shape)}, "
+            f"{q.slot.dtype} {tuple(q.slot.shape)}, {q.count.dtype} "
+            f"{tuple(q.count.shape)}, width {q.width}")
+
+
+def _check_queue_round(queue, want_reflect, want_children, radiance,
+                       pixel_rays, out) -> None:
+    dev = queue.state.device
+    _check_queue("queue", queue, dev)
+    n = radiance.shape[0] if radiance.dim() == 2 else 0
+    if (radiance.shape != (n, 3) or n < 1 or radiance.dtype != torch.float32
+            or not radiance.is_contiguous() or radiance.device != dev):
+        raise ValueError(f"radiance: want contiguous float32 (N, 3), N >= 1, "
+                         f"on {dev}, got {radiance.dtype} "
+                         f"{tuple(radiance.shape)} on {radiance.device}")
+    if pixel_rays is not None and (
+            pixel_rays.shape != (n,) or pixel_rays.dtype != torch.int32
+            or not pixel_rays.is_contiguous() or pixel_rays.device != dev):
+        raise ValueError(f"pixel_rays: want contiguous int32 ({n},) on {dev}")
+    if not want_children:
+        if out is not None:
+            raise ValueError("out: a radiance-only round emits no children")
+        return
+    if out is None:
+        raise ValueError("out: a round with children needs the next queue")
+    _check_queue("out", out, dev)
+    want = queue.width * (2 if want_reflect else 1)
+    if out.width != want:
+        raise ValueError(f"out.width: want {want} (the next round's static "
+                         f"width), got {out.width}")
+
+
+def mega_round_queue_plain(scene, queue: LaneQueue, limits: Sequence[float],
+                           want_reflect: bool, want_children: bool,
+                           radiance: torch.Tensor,
+                           pixel_rays: torch.Tensor | None = None,
+                           out: LaneQueue | None = None) -> None:
+    """The compacted round in plain PyTorch: the queued lanes in slot
+    order through `mega_round_plain`, radiance and counts added at their
+    pixels in slot order, the live children (``torch.nonzero``) written to
+    ``out`` in slot order. Reads the count on the host."""
+    _check_queue_round(queue, want_reflect, want_children, radiance,
+                       pixel_rays, out)
+    c = int(queue.count)
+    slot, order = torch.sort(queue.slot[:c], stable=True)
+    res = mega_round_plain(scene, queue.state[:, :c][:, order].contiguous(),
+                           limits, want_reflect, want_children)
+    pix = (slot % radiance.shape[0]).long()
+    radiance.index_add_(0, pix, res.radiance)
+    if pixel_rays is not None:
+        pixel_rays.index_add_(0, pix, torch.ones_like(slot))
+    if not want_children:
+        return
+    kid_slot = torch.cat([slot, slot + queue.width]) if want_reflect else slot
+    keep = torch.nonzero(res.children[6] != 0).squeeze(1)
+    k = int(keep.numel())
+    if k > out.state.shape[1]:
+        raise ValueError(f"out: {k} live children past its capacity "
+                         f"{out.state.shape[1]}")
+    out.state[:, :k] = res.children[:, keep]
+    out.slot[:k] = kid_slot[keep]
+    out.count.fill_(k)
+
+
+class QueueRound:
+    """`mega_round_queue` bound to one scene on one device, with the
+    scene's tables and map checked and their pointers and the grid cap
+    (BLOCKS_PER_SM per SM) taken once: the wavefront makes one per frame
+    and calls it per round, so a round costs the host one ctypes call. The
+    rounds run on the stream that was current when it was made. On the CPU
+    it takes the plain version."""
+
+    def __init__(self, scene, device):
+        self.scene, self.device = scene, torch.device(device)
+        if self.device.type == "cpu":
+            return
+        if self.device.type != "cuda":
+            raise ValueError(f"mega_round_queue: unsupported device {device}")
+        check_scene_tables(scene, self.device)
+        check_envmap(scene, self.device)
+        env = scene.envmap
+        self._launch = library().rt_round_queue
+        self._tables = tuple(x.data_ptr() for x in (
+            scene.tri_packed, scene.tri_norm_packed, scene.super_bounds,
+            scene.cluster_bounds, scene.sub_bounds, env))
+        sms = torch.cuda.get_device_properties(
+            self.device).multi_processor_count
+        self._sizes = (scene.num_supers, scene.num_clusters,
+                       scene.cluster_size, scene.sub_tris, env.shape[0],
+                       env.shape[1], BLOCKS_PER_SM * sms,
+                       torch.cuda.current_stream(self.device).cuda_stream)
+
+    def __call__(self, queue: LaneQueue, limits: Sequence[float],
+                 want_reflect: bool, want_children: bool,
+                 radiance: torch.Tensor,
+                 pixel_rays: torch.Tensor | None = None,
+                 out: LaneQueue | None = None) -> None:
+        """One round, as `mega_round_queue`, on buffers the caller has
+        checked (`mega_round_queue` checks them; the wavefront makes its
+        own)."""
+        if self.device.type == "cpu":
+            mega_round_queue_plain(self.scene, queue, limits, want_reflect,
+                                   want_children, radiance, pixel_rays, out)
+            return
+        err = self._launch(
+            *_limits(limits), *self._tables, queue.state.data_ptr(),
+            queue.slot.data_ptr(), queue.count.data_ptr(),
+            queue.state.shape[1], queue.width, radiance.shape[0],
+            radiance.data_ptr(),
+            None if pixel_rays is None else pixel_rays.data_ptr(),
+            None if out is None else out.state.data_ptr(),
+            None if out is None else out.slot.data_ptr(),
+            None if out is None else out.count.data_ptr(),
+            0 if out is None else out.state.shape[1],
+            _RADIANCE if not want_children
+            else _FULL if want_reflect else _CHILDREN, *self._sizes)
+        check(err, "rt_round_queue")
+        mega_round_queue.launches += 1
+
+
+def mega_round_queue(scene, queue: LaneQueue, limits: Sequence[float],
+                     want_reflect: bool, want_children: bool,
+                     radiance: torch.Tensor,
+                     pixel_rays: torch.Tensor | None = None,
+                     out: LaneQueue | None = None) -> None:
+    """One bounce round of the compacted ``queue`` (see the module doc).
+
+    Adds each queued lane's miss radiance into ``radiance`` (N, 3) at
+    pixel slot % N and, with ``pixel_rays`` (N,) int32, one per queued
+    lane; with ``want_children`` appends the live children to ``out``,
+    whose count the caller sets (normally to 0) and whose width is the
+    next round's static width. ``limits`` as for `mega_round`. On CUDA:
+    one launch on the current stream, also for an empty queue, and no host
+    sync; the order of the appended lanes and of the float additions at a
+    pixel is not fixed.
+    """
+    _check_queue_round(queue, want_reflect, want_children, radiance,
+                       pixel_rays, out)
+    QueueRound(scene, queue.state.device)(queue, limits, want_reflect,
+                                          want_children, radiance,
+                                          pixel_rays, out)
+
+
+mega_round_queue.launches = 0

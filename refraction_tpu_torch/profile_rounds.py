@@ -1,12 +1,16 @@
 """Per-round profile of the wavefront path: port of ``tools/profile_rounds.py``.
 
 For one frame of `integrator.render_pixels_mega` (spp 1, orbit angle
-0.01) it prints one line per bounce round: the lane width, the live
-lanes (cull != 0) entering the round, and the minimum of 5 timings of
-the round's `mega_round` call after one warm-up call. On ``--device cuda``
-the timings are CUDA events around the kernel launch; on ``--device cpu``
-they are wall-clock time over the plain version. The last line sums the
-rounds; the live lanes sum to the frame's ``rays_traced``.
+0.01) it prints one line per bounce round: the round's static lane width
+(N, 2N, 4N, ...), its live lanes (the count of its compacted queue), and
+the minimum of 5 timings of the round's `mega_round_queue` call after one
+warm-up call. On ``--device cuda`` the timings are the card's time
+(`timing.device_ms`: CUDA events around the call, queued behind a spin
+kernel so that the host's launch overhead is not counted; the next
+queue's count is zeroed before each call, outside the timed window, so a
+round's time is its one launch); on ``--device cpu`` they are
+wall-clock time over the plain version. The last line sums the rounds;
+the live lanes sum to the frame's ``rays_traced``.
 
     python -m refraction_tpu_torch.profile_rounds --scene my.obj \\
         --envmap env.hdr --width 1920 --height 1080 --bounces 4
@@ -27,7 +31,7 @@ from refraction_tpu_torch.camera import CameraFrame, generate_rays, orbit_camera
 from refraction_tpu_torch.integrator import wavefront_rounds
 from refraction_tpu_torch.run import build_config
 from refraction_tpu_torch.scene import load_scene, scene_from_jax
-from refraction_tpu_torch.timing import require_device, time_ms
+from refraction_tpu_torch.timing import device_ms, require_device
 
 REPS = 5
 
@@ -38,13 +42,23 @@ def profile_rounds(scene, cfg: RenderConfig, frame: CameraFrame,
     ``lanes``, ``live`` and ``ms`` (the minimum of REPS timed calls after
     one warm-up)."""
     o, d = generate_rays(frame, cfg.width, cfg.height, device)
+    radiance = torch.zeros(o.shape[0], 3, dtype=torch.float32, device=device)
     rows = []
-    for count, (state, run) in enumerate(wavefront_rounds(scene, o, d, cfg)):
-        live = int((state[6] != 0).sum())
-        time_ms(run, device)  # warm-up
-        ms = min(time_ms(run, device) for _ in range(REPS))
-        rows.append({"round": count, "lanes": int(state.shape[1]),
-                     "live": live, "ms": ms})
+    for count, (queue, out, run) in enumerate(wavefront_rounds(scene, o, d,
+                                                               cfg)):
+        live = int(queue.count)
+
+        def call():
+            run(radiance)
+
+        def reset():  # each call appends the round's children anew
+            if out is not None:
+                out.count.zero_()
+
+        device_ms(call, device, reset)  # warm-up
+        ms = min(device_ms(call, device, reset) for _ in range(REPS))
+        rows.append({"round": count, "lanes": queue.width, "live": live,
+                     "ms": ms})
     return rows
 
 

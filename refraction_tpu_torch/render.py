@@ -126,8 +126,8 @@ def frame_traversal_work(scene: TorchScene, cfg: RenderConfig,
                          ) -> list[dict]:
     """The traversal work of one frame, per bounce level: a list of dicts
     of summed `ops.intersect.traversal_work` counts (``super_tests``,
-    ``cluster_tests``, ``sub_tests``, ``mt_tests``) and ``rays`` (live
-    rays), over every sample's rays.
+    ``cluster_tests``, ``sub_tests``, ``mt_tests``), ``rays`` (live rays)
+    and ``misses`` (live rays that hit nothing), over every sample's rays.
 
     The rays, their intervals and their closest hits come from the eager
     integrator (`integrator.render_pixels`) over the closest-hit kernel on
@@ -144,6 +144,7 @@ def frame_traversal_work(scene: TorchScene, cfg: RenderConfig,
                               cull_code(want_front, alive))
         sums = {key: int(v.sum()) for key, v in work.items()}
         sums["rays"] = int(alive.sum())
+        sums["misses"] = int((alive & ~hit).sum())
         per_sample[-1].append(sums)
         return res
 

@@ -13,6 +13,11 @@ import time
 
 import torch
 
+# Cycles of the spin kernel that device_ms queues ahead of the timed call:
+# ~2 ms at the H100's boost clock, more than the host takes to enqueue
+# one wavefront frame (~1 ms).
+SPIN_CYCLES = 4_000_000
+
 
 def time_ms(fn, device: torch.device) -> float:
     """ms of one call of ``fn``: CUDA events around it on a CUDA device,
@@ -28,6 +33,29 @@ def time_ms(fn, device: torch.device) -> float:
     t0 = time.perf_counter()
     fn()
     return (time.perf_counter() - t0) * 1e3
+
+
+def device_ms(fn, device: torch.device, setup=None) -> float:
+    """ms the card spends on one call of ``fn``: on CUDA the call is
+    queued behind a spin kernel (``torch.cuda._sleep``) that outlasts its
+    enqueue, so the CUDA events around it time the device's work without
+    the host's launch overhead between its kernels; the host clock on the
+    CPU. ``setup()``, if given, runs just before the timed window, outside
+    it."""
+    if device.type != "cuda":
+        if setup is not None:
+            setup()
+        return time_ms(fn, device)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    if setup is not None:
+        setup()
+    ev0.record()
+    fn()
+    ev1.record()
+    torch.cuda.synchronize(device)
+    return ev0.elapsed_time(ev1)
 
 
 def card_line(device: torch.device) -> str:

@@ -18,8 +18,9 @@ from refraction_tpu_torch import RenderConfig
 from refraction_tpu_torch.camera import orbit_camera
 from refraction_tpu_torch.io.primitives import (
     make_cube, make_gradient_envmap, make_icosphere)
+from refraction_tpu_torch.fixtures import paired_miss_lanes
 from refraction_tpu_torch.integrator import (
-    initial_state, render_pixels, render_pixels_mega)
+    initial_state, render_pixels, render_pixels_mega, static_wavefront)
 from refraction_tpu_torch.camera import generate_rays
 from refraction_tpu_torch.kernels.envmap import (
     env_contribution, env_contribution_plain)
@@ -28,7 +29,8 @@ from refraction_tpu_torch.kernels.framekernel import (
 from refraction_tpu_torch.kernels.intersect import (
     closest_hit, closest_hit_plain)
 from refraction_tpu_torch.kernels.megakernel import (
-    mega_round, mega_round_plain)
+    LaneQueue, empty_queue, mega_round, mega_round_plain, mega_round_queue,
+    mega_round_queue_plain)
 from refraction_tpu_torch.kernels.mtbench import (
     make_inputs, mt_args, mt_visits, mt_visits_plain, woop_args, woop_visits,
     woop_visits_plain)
@@ -210,9 +212,10 @@ def test_wavefront_matches_frame_kernel(cuda, name):
     cfg = RenderConfig(width=96, height=70)
     frame = orbit_camera(0.4, cfg)
     o, d = generate_rays(frame, 96, 70, cuda)
-    before = mega_round.launches
+    before = mega_round_queue.launches, mega_round.launches
     img, st = render_pixels_mega(scene, o, d, cfg, collect_stats=True)
-    assert mega_round.launches == before + cfg.max_refract_depth + 1
+    assert (mega_round_queue.launches, mega_round.launches) == (
+        before[0] + cfg.max_refract_depth + 1, before[1])
     frame_img = fused_radiance(
         scene, build_scalars(frame, cfg, sample_offsets(1), cuda), cfg)
     ok, why = _img_ok(img.reshape(70, 96, 3), frame_img)
@@ -260,3 +263,138 @@ def test_stall_kernel_equals_plain(cuda, variant, n_iter, carry):
     ref = stall_iters_plain(variant, n_iter, sm, x)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+def _queue(cap, width, dev, lanes=None, slots=None):
+    st, sl = empty_queue(cap, dev)
+    count = 0 if lanes is None else lanes.shape[1]
+    if count:
+        st[:, :count] = lanes
+        sl[:count] = slots
+    return LaneQueue(st, sl, torch.tensor([count], dtype=torch.int32,
+                                          device=dev), width)
+
+
+@pytest.mark.parametrize("variant", ["full", "norefl", "missonly"])
+@pytest.mark.parametrize("name", ["cube", "sphere"])
+def test_round_queue_kernel_matches_plain_and_static(cuda, name, variant):
+    """The compacted kernel on a shuffled queue of the live lanes: against
+    its plain version after sorting by slot, and bit for bit against the
+    static kernel at each slot (one pixel per slot); then an empty queue."""
+    want_reflect, want_children = {"full": (True, True),
+                                   "norefl": (False, True),
+                                   "missonly": (False, False)}[variant]
+    scene = scene_from_jax(_scenes()[name], cuda)
+    n = 20000
+    o, d, cull = _rays(n, 5, cuda)
+    state = initial_state(o, d)
+    state[6] = cull
+    w = torch.rand(n, generator=torch.Generator().manual_seed(6)).to(cuda)
+    w[::7] = 1.4e-45
+    state[7] = w
+    limits = (1e-3, 1000.0, 1.3, 0.00826446)
+    live = torch.nonzero(cull != 0).squeeze(1)
+    live = live[torch.randperm(live.numel(),
+                               generator=torch.Generator().manual_seed(7)
+                               ).to(cuda)]
+    w_out = n * (2 if want_reflect else 1)
+    res = []
+    for fn in (mega_round_queue, mega_round_queue_plain):
+        out = _queue(w_out, w_out, cuda) if want_children else None
+        rad = torch.zeros(n, 3, device=cuda)
+        pix = torch.zeros(n, dtype=torch.int32, device=cuda)
+        before = mega_round_queue.launches
+        fn(scene, _queue(n, n, cuda, state[:, live], live.to(torch.int32)),
+           limits, want_reflect, want_children, rad, pix, out)
+        assert mega_round_queue.launches == before + (fn is mega_round_queue)
+        res.append((rad, pix, out))
+    static = mega_round(scene, state, limits, want_reflect, want_children)
+    torch.cuda.synchronize()
+    (rad_k, pix_k, out_k), (rad_p, pix_p, out_p) = res
+    assert torch.equal(rad_k, static.radiance)
+    off = (rad_k - rad_p).abs().amax(dim=1) > PIX_TOL
+    assert float(off.double().mean()) <= 1 - AGREE
+    assert torch.equal(pix_k, pix_p)
+    assert torch.equal(pix_k, (cull != 0).to(torch.int32))
+    if want_children:
+        c = int(out_k.count)
+        assert c <= w_out
+        slots, order = torch.sort(out_k.slot[:c].long())
+        kids = out_k.state[:, :c][:, order]
+        alive = static.children[6] != 0
+        assert torch.equal(slots, torch.nonzero(alive).squeeze(1))
+        assert torch.equal(kids, static.children[:, slots])
+        cp = int(out_p.count)
+        only = set(slots.tolist()) ^ set(out_p.slot[:cp].tolist())
+        assert len(only) <= (1 - AGREE) * n
+        if want_reflect:  # weight-0 reflection children are queued
+            under = (slots >= n) & (w[(slots - n).clamp(0, n - 1)] < 1e-40)
+            assert int(under.sum()) > 0
+            assert bool((kids[7][under] == 0).all())
+    # An empty queue: one launch, nothing added or appended.
+    out = _queue(w_out, w_out, cuda) if want_children else None
+    rad = torch.zeros(n, 3, device=cuda)
+    mega_round_queue(scene, _queue(n, n, cuda), limits, want_reflect,
+                     want_children, rad, None, out)
+    torch.cuda.synchronize()
+    assert not bool(rad.any())
+    assert out is None or int(out.count) == 0
+
+
+@pytest.mark.parametrize("first", ["subnormal", "normal"])
+def test_round_queue_kernel_keeps_a_subnormal_miss_beside_a_normal_one(
+        cuda, first):
+    """Two misses per pixel, a subnormal and a small normal radiance, the
+    one or the other queued first: each pixel's sum equals the static
+    layout's bit for bit, the subnormal kept (a float atomic add flushes a
+    subnormal already in the sum)."""
+    scene = scene_from_jax(_scenes()["sphere"], cuda)
+    limits = (1e-3, 1000.0, 1.3, 0.00826446)
+    p = 1 << 14
+    state = torch.from_numpy(paired_miss_lanes(p, seed=4)).to(cuda)
+    static = mega_round(scene, state, limits, False, False).radiance
+    want = static.reshape(2, p, 3).sum(dim=0)
+    assert bool((want != static[p:]).any())  # the subnormals count
+    order = torch.arange(2 * p, device=cuda)
+    if first == "normal":
+        order = order.roll(p)
+    rad = torch.zeros(p, 3, device=cuda)
+    mega_round_queue(scene, _queue(2 * p, 2 * p, cuda, state[:, order],
+                                   order.to(torch.int32)),
+                     limits, False, False, rad)
+    torch.cuda.synchronize()
+    assert torch.equal(rad, want)
+
+
+@pytest.mark.parametrize("name", ["cube", "sphere"])
+def test_compacted_wavefront_equals_static_wavefront(cuda, name):
+    """Stats exactly, the image to 1e-7 RMSE / 1e-6 max (a pixel's misses
+    within a round are added with atomics in no fixed order)."""
+    scene = scene_from_jax(_scenes()[name], cuda)
+    cfg = RenderConfig(width=250, height=190)
+    o, d = generate_rays(orbit_camera(0.6, cfg), 250, 190, cuda)
+    n = o.shape[0]
+    img, st = render_pixels_mega(scene, o, d, cfg, collect_stats=True)
+    before = mega_round.launches
+    ref, st_s = static_wavefront(scene, o, d, cfg, collect_stats=True)
+    assert mega_round.launches == before + cfg.max_refract_depth + 1
+    assert int(st["rays_traced"]) == int(st_s["rays_traced"]) > n
+    assert torch.equal(st["pixel_rays"], st_s["pixel_rays"])
+    assert st["slot_rounds"] == st_s["slot_rounds"]
+    diff = (img - ref).abs()
+    assert float(torch.sqrt(torch.mean(diff.double() ** 2))) < 1e-7
+    assert float(diff.max()) < 1e-6
+
+
+def test_wavefront_does_not_sync_the_host(cuda):
+    scene = scene_from_jax(_scenes()["sphere"], cuda)
+    cfg = RenderConfig(width=96, height=70)
+    o, d = generate_rays(orbit_camera(0.4, cfg), 96, 70, cuda)
+    render_pixels_mega(scene, o, d, cfg)  # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        render_pixels_mega(scene, o, d, cfg)
+        render_pixels_mega(scene, o, d, cfg, collect_stats=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

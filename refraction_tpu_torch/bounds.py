@@ -1,6 +1,8 @@
 """Roofline bounds of the port's kernels: the least time the card could take
 for the work of one call, the larger of its bytes over the memory rate and
-its operations over the FP32 peak.
+its operations over the peak rate of their type (FP32 outside the tensor
+cores; the tensor-core instrument's product over the TF32 peak, a pipe
+that runs beside the FP32 one, so the two times do not add).
 
 Bytes count each input read once and each output written once. Operations
 count what these inputs need (`ops.intersect.traversal_work` for the
@@ -41,6 +43,7 @@ from refraction_tpu_torch.timing import card_line, require_device
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12  # dense TF32 on the tensor cores, same data sheet
 # FP32 operations per ray of the env lookup (envmap.cuh rt_env_texel and
 # the weighting): 2 divides, 4 multiplies, 2 adds, 2 clamps of 2, the
 # atan2f and acosf counted as one each, 3 weight multiplies.
@@ -49,7 +52,14 @@ ENV_RAY_OPS = 17
 # triangle (the traversal's 52 plus the det * cull multiply); Woop the
 # 48 x 8 product (8 multiplies and 7 adds per row) plus 13 per triangle.
 MT_VISIT_OPS = 8 * 53
-WOOP_VISIT_OPS = 48 * 15 + 8 * 13
+WOOP_EPILOGUE_OPS = 8 * 13
+WOOP_VISIT_OPS = 48 * 15 + WOOP_EPILOGUE_OPS
+# The tensor-core Woop forms do the 48 x 8 product as tensor-core
+# multiply-adds (two operations each) and the same epilogue in FP32. The
+# function needs the product once: 3xTF32's three passes are how that
+# kernel reaches FP32 accuracy, not work the bound may count.
+WOOP_TC_PRODUCT_OPS = 48 * 8 * 2
+WOOP_TC_KINDS = ("woop_tc", "woop_tc3")
 # Per carry element and iteration of the six stall variants
 # (csrc/stallbench.cu): vecops 128, tree 4, extract 3, while2 4,
 # loads72 144, subplane 36.
@@ -61,11 +71,16 @@ RADIANCE_BYTES = 3 * 4  # one lane's miss radiance
 SECTOR_BYTES = 32  # the least a scattered load moves from memory
 
 
-def bound(ops: float, nbytes: float) -> dict:
-    """{'ops', 'bytes', 'ops_ms', 'bytes_ms', 'bound_ms', 'bound_by'}."""
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
+def bound(ops: float, nbytes: float, tensor_ops: float = 0) -> dict:
+    """{'ops', 'bytes', 'ops_ms', 'bytes_ms', 'bound_ms', 'bound_by'} of
+    ``ops`` FP32 operations, ``nbytes`` bytes and, beside them,
+    ``tensor_ops`` TF32 tensor-core operations. The FP32 and tensor pipes
+    run side by side across warps, so ``ops_ms`` is the larger of their
+    two times and ``bound_ms`` the largest of the three."""
+    ops_ms = max(ops / FP32_OPS_PER_S, tensor_ops / TF32_OPS_PER_S) * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"ops": int(ops), "bytes": int(nbytes), "ops_ms": ops_ms,
+    return {"ops": int(ops + tensor_ops), "bytes": int(nbytes),
+            "ops_ms": ops_ms,
             "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
@@ -143,6 +158,17 @@ def round_bound(scene, cfg: RenderConfig, levels: list[dict]) -> dict:
     return out
 
 
+def fold_bound(n_pix: int, named: int, touched: int) -> dict:
+    """Bound of one fold launch (`kernels.megakernel.fold_round_sums`)
+    over ``n_pix`` pixels whose masks name ``named`` slab rows in all, at
+    ``touched`` pixels: every mask read; per named row 12 bytes in; per
+    touched pixel its mask cleared and its radiance read and written; one
+    add per row and channel and one per touched pixel and channel."""
+    return bound(3 * (named + touched),
+                 4 * n_pix + RADIANCE_BYTES * named
+                 + (4 + 2 * RADIANCE_BYTES) * touched)
+
+
 def closest_hit_bound(scene, o, d, cull, tmin: float, t_hit) -> dict:
     """Bound of one closest-hit launch: the rays' traversal work on
     [tmin, t_hit]; bytes are the rays and cull in, (t, idx, normal) out,
@@ -156,17 +182,28 @@ def closest_hit_bound(scene, o, d, cull, tmin: float, t_hit) -> dict:
     return out
 
 
-def env_bound(scene, n: int) -> dict:
-    """Bound of one env launch over n rays: dirs and weights in, (n, 3)
-    out, the whole map read once."""
-    return bound(n * ENV_RAY_OPS, n * (12 + 4 + 12) + env_bytes(scene))
+def env_bound(scene, n: int, live: int) -> dict:
+    """Bound of one env launch over n rays, ``live`` of them with weight
+    > 0: a live ray's direction and weight in, its radiance out and a
+    sector of the map per lookup, at most the map (`round_map_bytes`); a
+    ray of weight 0 costs its weight in and 12 bytes of zeros out."""
+    nbytes = (live * (12 + 4 + RADIANCE_BYTES) + round_map_bytes(scene, live)
+              + (n - live) * (4 + RADIANCE_BYTES))
+    return bound(live * ENV_RAY_OPS, nbytes)
 
 
 def mtbench_bound(kind: str, r: int, v: int, table_words: int) -> dict:
-    """Bound of one instrument launch: v sub visits for each of r rays."""
-    ops = (MT_VISIT_OPS if kind == "mt" else WOOP_VISIT_OPS) * r * v
+    """Bound of one instrument launch: v sub visits for each of r rays.
+    ``kind``: ``mt``, ``woop`` (the product on CUDA cores), ``woop_tc`` or
+    ``woop_tc3`` (the product on the tensor cores, TF32 or 3xTF32: the
+    same bound, the product counted once)."""
     ray_words = 7 if kind == "mt" else 9  # o, d, cull or rhs(8), cull
-    return bound(ops, 4 * (table_words + r * ray_words + 2 * r))
+    nbytes = 4 * (table_words + r * ray_words + 2 * r)
+    if kind in WOOP_TC_KINDS:
+        return bound(WOOP_EPILOGUE_OPS * r * v, nbytes,
+                     WOOP_TC_PRODUCT_OPS * r * v)
+    ops = {"mt": MT_VISIT_OPS, "woop": WOOP_VISIT_OPS}[kind] * r * v
+    return bound(ops, nbytes)
 
 
 def stall_bound(n_iter: int, elems: int = 1024) -> dict:

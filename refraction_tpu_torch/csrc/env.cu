@@ -4,11 +4,25 @@
 // Replaces refraction_tpu/kernels/envmap_pallas.py::_env_call (625-653;
 // kernel body _env_kernel at 130) and its entry pallas_env_contribution
 // (655-675). It is not on the fused frame path; it lets the lookup be
-// checked alone, and serves the eager integrator's "cuda" backend.
+// checked alone, and serves the eager integrator's "cuda" backend, which
+// calls it once per bounce round on every lane of the round's static
+// width, most of them with weight 0.
 //
-// Bound on the H100: memory. Per ray it reads 16 bytes of input and one
-// 12-byte texel (random for scattered directions, coherent for primaries)
-// and writes 12 bytes; the map (24 MB at 1024x2048) fits in the 50 MB L2.
+// On the H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): a ray of weight
+// > 0 reads 16 bytes of input and one texel (a 32-byte sector of the map)
+// and writes 12 bytes; a ray of weight 0 reads its 4-byte weight and
+// writes 12 bytes of zeros: 65 MB at 3,145,728 lanes with a tenth alive,
+// 0.019 ms of memory time against 0.040 ms measured. Forms that move
+// 16-byte words (the texel from a four-float copy of the map; four rays a
+// thread with 16-byte loads and stores; stores staged in shared memory)
+// were timed against this one and were no faster or slower: they are kept
+// as an instrument in env_variants.cu, and `python -m
+// refraction_tpu_torch.env_times --variants` times them in turns with
+// this kernel. No profiler ran on that card, so what holds the kernel is
+// inferred, not measured: moving fewer or wider words changed nothing, and
+// a warp runs the index math (atan2f, acosf, IEEE divides) whenever one of
+// its 32 lanes is alive, which with scattered live lanes is nearly every
+// warp; so instruction issue is the likely limit.
 // The TPU version needed the map in VMEM (8 MB cap, XLA fallback beyond);
 // here any map size runs the same code.
 

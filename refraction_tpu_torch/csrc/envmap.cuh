@@ -1,5 +1,10 @@
 // Equirect environment lookup of one direction: the device function shared
-// by the env kernel (env.cu) and the frame kernel (frame.cu).
+// by the env kernel (env.cu), the frame kernel (frame.cu) and the round
+// kernel (round.cu), each of which reads the texel it names as three
+// 4-byte loads of the float32 (H, W, 3) map. A 16-byte load from a
+// four-float copy of the map was timed in all three and moved none
+// (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md; env_variants.cu keeps that
+// form for the env kernel), so there is one map layout.
 //
 // Replaces refraction_tpu/kernels/envmap_pallas.py::env_window_tile and
 // _env_flat (217-267) with env_window_addr/scan/accumulate and the coded

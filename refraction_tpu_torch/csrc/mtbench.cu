@@ -1,7 +1,7 @@
-// Traversal instrument: the cost of one 8-triangle sub visit, in two forms.
-// Both kernels run V sub visits against R rays, one thread per ray, with a
-// register-carried winner (t, i, u, v); visit s reads sub record s % 64 and
-// names its triangles s*8 + k. Misses end at t = 1e30, i = 0.
+// Traversal instrument: the cost of one 8-triangle sub visit, in three
+// forms. Every kernel runs V sub visits against R rays with a
+// register-carried winner (t, i); visit s reads sub record s % 64 and names
+// its triangles s*8 + k. Misses end at t = 1e30, i = 0.
 //
 //   rt_mt_visits    replaces tools/mxu_mt_bench.py::_vpu_kernel (44-93):
 //                   Möller–Trumbore per triangle from the 72-word records
@@ -17,22 +17,30 @@
 //                   and the packed-key min (bits(tt) & ~7) | k over the 8
 //                   triangles: near-equal t fall to the lower k, as the TPU
 //                   kernel's sublane roll-tree does (113-121). Then the
-//                   winner's untruncated t and a strict t < best.
+//                   winner's untruncated t and a strict t < best. The
+//                   product runs on CUDA cores, summed over k = 0..7 in a
+//                   fixed order, so the kernel equals its plain version
+//                   (kernels/mtbench.py) bit for bit (with -fmad=false):
+//                   the exact form the next one is held against.
+//   rt_woop_visits_tc  the same function with the (48, 8) x (8, R) product
+//                   on the tensor cores, which is what _mxu_kernel's
+//                   jnp.dot on the MXU asks: mma.sync m16n8k8 TF32 with
+//                   FP32 accumulators, in one pass (operands rounded to
+//                   TF32) or three (3xTF32: x = hi + lo with
+//                   hi = tf32(x), lo = tf32(x - hi), and
+//                   lo*hi + hi*lo + hi*hi accumulated in that order, small
+//                   products first). See the kernel for the mapping.
 //
-// The TPU kernels' (8, 128) ray planes become one thread per ray; the
-// roll-tree over the 8 triangle sublanes becomes a loop over k.
-//
-// The product stays on CUDA cores, summed over k = 0..7 in a fixed order,
-// so the kernel equals its plain version (kernels/mtbench.py) bit for bit
-// (with -fmad=false). The tensor-core form of the MXU product (mma.sync
-// TF32 / 3xTF32, or wgmma) is the instrument's open question on this card
-// and a later redesign.
+// In the first two the TPU kernels' (8, 128) ray planes become one thread
+// per ray and the roll-tree over the 8 triangle sublanes a loop over k.
 //
 // What bounds them on the H100: FP32 instruction rate and dependent
 // latency, not bytes. Per visit a thread does ~400 FP32 operations and 8
-// divides (MT)
-// or 720 for the product plus 8 divides (Woop), on 16-28 bytes of ray
-// state it keeps in registers. Every thread reads the same table words at
+// divides (MT), or 720 for the product plus 8 divides (Woop), on 16-28
+// bytes of ray state it keeps in registers; in the tensor-core form a warp
+// runs 12 mma (36 for 3xTF32) in place of its 32 x 720 product
+// operations, and each thread keeps the 8 divides and epilogues and adds
+// 32 shuffles for the min over a ray's 8 lanes. Every thread reads the same table words at
 // the same time, the counterpart of the TPU's scalar (SMEM) reads, so the
 // tables are staged once per block in shared memory and read as
 // broadcasts: the 4,608 triangle words (18 KB, static) and the 3,072 x 8
@@ -174,6 +182,178 @@ __global__ void __launch_bounds__(RT_MT_BLOCK) rt_woop_visits_kernel(
   i_out[j] = bi;
 }
 
+// Round to TF32 (10 mantissa bits), to nearest with ties away from zero,
+// as cvt.rna.tf32.f32 does, in integer arithmetic on the bits so that the
+// plain version (kernels/mtbench.py tf32_round) rounds identically: add
+// half a TF32 ulp to the magnitude, clear the low 13 bits. Finite inputs.
+__device__ __forceinline__ float rt_tf32(float x) {
+  return __int_as_float((__float_as_int(x) + 0x1000) & 0xffffe000);
+}
+
+// d += a (16x8, row) * b (8x8, col), TF32 operands, FP32 accumulate.
+__device__ __forceinline__ void rt_mma_tf32(float (&d)[4], const float4& a,
+                                            const float2& b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(__float_as_uint(a.x)), "r"(__float_as_uint(a.y)),
+        "r"(__float_as_uint(a.z)), "r"(__float_as_uint(a.w)),
+        "r"(__float_as_uint(b.x)), "r"(__float_as_uint(b.y)));
+}
+
+#define RT_TC_TILES 4                      // N-tiles of 8 rays per warp
+#define RT_TC_FRAGS (RT_MT_SUBS * 3 * 32)  // A fragments: sub, M-tile, lane
+
+// The Woop visits with the product on the tensor cores. A warp owns 32
+// rays as four N-tiles of 8; the 48 Woop rows of a sub are three M-tiles
+// of 16 (rows 0-15 = o'x o'y, 16-31 = o'z d'x, 32-47 = d'y d'z, 8
+// triangles each). With g = lane >> 2 and t = lane & 3 the m16n8k8
+// fragments are
+//   A (16x8): rows g, g + 8, columns t, t + 4
+//   B (8x8):  rows (K index) t, t + 4, column (ray) g
+//   C (16x8): rows g, g + 8, columns (rays) 2t, 2t + 1
+// so after the three M-tiles of an N-tile a thread holds all six outputs
+// of triangle g for rays 2t and 2t + 1: the epilogue (t = -o'z / d'z, u,
+// v, accept, packed key) runs in registers with no relayout, and the min
+// over the 8 triangles is a butterfly over the lanes that differ in g
+// (__shfl_xor_sync by 4, 8, 16), the counterpart of the TPU kernel's
+// sublane roll-tree; one more shuffle fetches the winner's untruncated t.
+// The butterfly runs level by level over the thread's 8 rays at once, so
+// that a level's 8 shuffles are in flight together: with one warp per
+// scheduler nothing else hides their latency, and ray after ray (4
+// dependent shuffles each, 32 in a chain) a visit took 1,132 ns against
+// 636 (one TF32 pass, 1,024 rays; NVIDIA H100 80GB HBM3, 700.00 W).
+// Every lane of a ray's 8 ends with the same carried winner; lanes with
+// g = 0 write it out.
+//
+// The ray fragments (B) are loaded and split once. The A fragments are
+// staged once per block in shared memory, already rounded (and split, for
+// 3xTF32) and in fragment order, one float4 per (sub, M-tile, lane), so a
+// visit reads them with three (six) conflict-free 16-byte loads: 96 KB, or
+// 192 KB for 3xTF32. The K column holding 1 and 0 is exact in TF32.
+//
+// The order in which mma adds its eight products is not specified, so the
+// kernel agrees with its plain version (the same rounded operands, the
+// products summed in FP32 in K order) to a tolerance, not bit for bit.
+template <int PASSES>
+__global__ void __launch_bounds__(RT_MT_BLOCK) rt_woop_visits_tc_kernel(
+    const float* __restrict__ wmat, const float* __restrict__ rhs,
+    const float* __restrict__ cull, int r, int v, float* __restrict__ t_out,
+    int* __restrict__ i_out) {
+  extern __shared__ float4 s_frag[];  // hi [RT_TC_FRAGS], then lo for 3 passes
+  for (int e = threadIdx.x; e < RT_TC_FRAGS; e += blockDim.x) {
+    const int ln = e & 31, m = (e >> 5) % 3, sub = e / 96;
+    const float* row_g =  // row g of the M-tile, column t; row g + 8 below
+        wmat + ((sub * RT_WOOP_ROWS + 16 * m + (ln >> 2)) * RT_WOOP_K) +
+        (ln & 3);
+    const float* row_g8 = row_g + 8 * RT_WOOP_K;
+    const float4 x = make_float4(row_g[0], row_g8[0], row_g[4], row_g8[4]);
+    const float4 h =
+        make_float4(rt_tf32(x.x), rt_tf32(x.y), rt_tf32(x.z), rt_tf32(x.w));
+    s_frag[e] = h;
+    if (PASSES == 3)
+      s_frag[RT_TC_FRAGS + e] =
+          make_float4(rt_tf32(x.x - h.x), rt_tf32(x.y - h.y),
+                      rt_tf32(x.z - h.z), rt_tf32(x.w - h.w));
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+  if (base >= r) return;  // the whole warp
+
+  float2 b_hi[RT_TC_TILES], b_lo[RT_TC_TILES];
+  float c[RT_TC_TILES][2];
+  float bt[RT_TC_TILES][2];
+  int bi[RT_TC_TILES][2];
+#pragma unroll
+  for (int n = 0; n < RT_TC_TILES; ++n) {
+    const int col = base + 8 * n + g;  // the ray this lane feeds to B
+    const float k0 = col < r ? rhs[t * r + col] : 0.0f;
+    const float k1 = col < r ? rhs[(t + 4) * r + col] : 0.0f;
+    b_hi[n] = make_float2(rt_tf32(k0), rt_tf32(k1));
+    b_lo[n] = make_float2(rt_tf32(k0 - b_hi[n].x), rt_tf32(k1 - b_hi[n].y));
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ray = base + 8 * n + 2 * t + e;  // the rays of its C columns
+      c[n][e] = ray < r ? cull[ray] : 0.0f;
+      bt[n][e] = RT_MT_BIG;
+      bi[n][e] = 0;
+    }
+  }
+
+  for (int s = 0; s < v; ++s) {
+    const float4* frag = s_frag + (s % RT_MT_SUBS) * 96 + lane;
+    float4 a_hi[3], a_lo[3];
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      a_hi[m] = frag[32 * m];
+      if (PASSES == 3) a_lo[m] = frag[RT_TC_FRAGS + 32 * m];
+    }
+    float tt[RT_TC_TILES][2];
+    int key[RT_TC_TILES][2];
+#pragma unroll
+    for (int n = 0; n < RT_TC_TILES; ++n) {
+      float acc[3][4];
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.0f;
+        if (PASSES == 3) {
+          rt_mma_tf32(acc[m], a_lo[m], b_hi[n]);
+          rt_mma_tf32(acc[m], a_hi[m], b_lo[n]);
+        }
+        rt_mma_tf32(acc[m], a_hi[m], b_hi[n]);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float oxp = acc[0][e], oyp = acc[0][2 + e];
+        const float ozp = acc[1][e], dxp = acc[1][2 + e];
+        const float dyp = acc[2][e], dzp = acc[2][2 + e];
+        const float inv = 1.0f / dzp;
+        const float tt0 = -ozp * inv;
+        const float u = oxp + tt0 * dxp;
+        const float vv = oyp + tt0 * dyp;
+        const bool cond = dzp * c[n][e] > 0.0f && u >= 0.0f && vv >= 0.0f &&
+                          u + vv <= 1.0f && tt0 >= RT_MT_TMIN;
+        tt[n][e] = cond ? tt0 : RT_MT_BIG;
+        key[n][e] = (__float_as_int(tt[n][e]) & ~7) | g;
+      }
+    }
+    // The min over a ray's 8 lanes, level by level for the 8 rays at once:
+    // the 8 shuffles of a level are independent, so their latencies
+    // overlap (a warp has its scheduler to itself here).
+#pragma unroll
+    for (int x = 4; x <= 16; x <<= 1)
+#pragma unroll
+      for (int n = 0; n < RT_TC_TILES; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          key[n][e] =
+              min(key[n][e], __shfl_xor_sync(0xffffffffu, key[n][e], x));
+#pragma unroll
+    for (int n = 0; n < RT_TC_TILES; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int win = key[n][e] & 7;
+        const float wt = __shfl_sync(0xffffffffu, tt[n][e], (win << 2) | t);
+        if (wt < bt[n][e]) {
+          bt[n][e] = wt;
+          bi[n][e] = s * RT_MT_TRIS + win;
+        }
+      }
+  }
+  if (g != 0) return;
+#pragma unroll
+  for (int n = 0; n < RT_TC_TILES; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ray = base + 8 * n + 2 * t + e;
+      if (ray < r) {
+        t_out[ray] = bt[n][e];
+        i_out[ray] = bi[n][e];
+      }
+    }
+}
+
 // tri: (4608,) records; o, d: (3, r) SoA; cull: (r,); t_out (r,), i_out
 // (r,) int32. Returns a cudaError_t.
 extern "C" int rt_mt_visits(const float* tri, const float* o, const float* d,
@@ -199,5 +379,30 @@ extern "C" int rt_woop_visits(const float* wmat, const float* rhs,
   const int grid = (r + RT_MT_BLOCK - 1) / RT_MT_BLOCK;
   rt_woop_visits_kernel<<<grid, RT_MT_BLOCK, smem, (cudaStream_t)stream>>>(
       wmat, rhs, cull, r, v, t_out, i_out);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core form; passes 1 (TF32) or 3 (3xTF32). Same arguments and
+// launch geometry as rt_woop_visits.
+extern "C" int rt_woop_visits_tc(const float* wmat, const float* rhs,
+                                 const float* cull, int r, int v, int passes,
+                                 float* t_out, int* i_out, void* stream) {
+  if (passes != 1 && passes != 3) return (int)cudaErrorInvalidValue;
+  if (r <= 0) return 0;
+  const int smem = (passes == 3 ? 2 : 1) * RT_TC_FRAGS * (int)sizeof(float4);
+  const int grid = (r + RT_MT_BLOCK - 1) / RT_MT_BLOCK;
+#define RT_TC_LAUNCH(P)                                                      \
+  do {                                                                       \
+    cudaError_t err = cudaFuncSetAttribute(                                  \
+        rt_woop_visits_tc_kernel<P>,                                         \
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);                  \
+    if (err != cudaSuccess) return (int)err;                                 \
+    rt_woop_visits_tc_kernel<P><<<grid, RT_MT_BLOCK, smem,                   \
+                                  (cudaStream_t)stream>>>(                   \
+        wmat, rhs, cull, r, v, t_out, i_out);                                \
+  } while (0)
+  if (passes == 3) RT_TC_LAUNCH(3);
+  else RT_TC_LAUNCH(1);
+#undef RT_TC_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -31,8 +31,9 @@
 //     alive: the JAX integrator's concatenate([refraction, reflection]).
 //   compacted (rt_round_queue_kernel, entry rt_round_queue): a queue of
 //     `count` live lanes, each with its slot id, its index in the static
-//     layout above (pixel = slot % N). The lane's miss radiance is added
-//     into an (N, 3) accumulator at its pixel, and only
+//     layout above (pixel = slot % N, j = slot / N its place among the
+//     pixel's lanes). The round's miss radiance reaches the (N, 3) running
+//     radiance as the static layout's per-pixel sum (below), and only
 //     live children are appended to the next queue: the refraction child
 //     keeps slot s, the reflection child takes s + W (W = the round's
 //     static width), their static positions. The kernel reads `count` from
@@ -51,12 +52,27 @@
 // no live lane is a launch whose warps exit at once. Children are
 // appended with one atomicAdd per warp (ballots give each lane its
 // offset), so a warp's children land contiguously and the writes stay
-// coalesced. Radiance goes in by a plain add where a round has one lane
-// per pixel (round 0) and by compare-and-swap additions elsewhere; these
-// commute, so a pixel with at most two misses in a round sums as the
-// static layout's (0 + a + b); beyond two the order of the additions is
-// not fixed. The traversal is traverse_f2b.cuh's, in its flat or supers
+// coalesced. The traversal is traverse_f2b.cuh's, in its flat or supers
 // instance as the scene has super boxes or not.
+//
+// A pixel's misses are summed in slot order, whatever the queue order. The
+// static layout adds a round to the running radiance as
+//   radiance + (((0 + r_0) + r_1) + ... + r_(J-1)),   J = W / N,
+// with r_j the radiance at slot j*N + pixel, +0.0 on a dead lane, a hit or
+// a miss of weight 0. Where a round has one lane per pixel (W <= N, round
+// 0) the queued lane adds its radiance to the running radiance itself: no
+// other lane touches the pixel. Elsewhere a missing lane of weight > 0
+// stores its radiance at slab[slot] (a (W, 3) scratch, written only there,
+// never zeroed) and sets bit j of mask[pixel] with atomicOr; then
+// rt_fold_round_kernel, one thread per pixel, adds the slab entries of the
+// set bits to +0.0 in ascending j, adds that sum to the running radiance
+// and clears the mask. No float goes through an atomic, so the sum is the
+// same on every run and subnormals are kept. Skipping an unset slot equals
+// the static layout's adding its +0.0: a sum that starts at +0.0 is never
+// -0.0 (x + y is -0.0 only when both are), and x + (+0.0) == x for every
+// other x, so neither the round sum nor the running radiance can tell.
+// (The radiance itself is never -0.0 either: a weight > 0 times a map
+// texel >= 0.) A pixel with no bit set keeps its radiance: r + (+0.0).
 
 #include <cuda_runtime.h>
 
@@ -78,6 +94,7 @@ struct RtRoundArgs {
 // One lane's results. A dead child has cull 0, weight 0, d = (0, 1, 0).
 struct RtLaneOut {
   float cr, cg, cb;    // weighted env radiance of a live miss, else 0
+  bool missed;         // a live miss of weight > 0: cr cg cb are its radiance
   float hx, hy, hz;    // the children's origin: the hit point, else o
   float3 tr, fl;       // refraction / reflection directions
   float t_cull, t_wgt, f_cull, f_wgt;
@@ -101,7 +118,8 @@ __device__ __forceinline__ RtLaneOut rt_round_lane(const RtRoundArgs& a,
                                        V == RT_ROUND_RADIANCE);
   const bool hit = h.idx >= 0;
   r.cr = r.cg = r.cb = 0.0f;
-  if (cull != 0.0f && !hit && wgt > 0.0f) {  // miss shader (hlsl:127-137)
+  r.missed = cull != 0.0f && !hit && wgt > 0.0f;
+  if (r.missed) {  // miss shader (hlsl:127-137)
     const int f = rt_env_texel(dx, dy, dz, a.env_h, a.env_w);
     r.cr = wgt * __ldg(a.env + 3 * f);
     r.cg = wgt * __ldg(a.env + 3 * f + 1);
@@ -138,30 +156,6 @@ __device__ __forceinline__ void rt_put_lane(float* state, size_t stride,
   for (int k = 0; k < 8; ++k) state[k * stride + i] = v[k];
 }
 
-// Adds v into *p in IEEE arithmetic. Where the round has at most one lane
-// per pixel (`lone`: static width <= pixels, as in round 0), a plain load
-// and store. Otherwise a compare-and-swap loop: a float atomic add (PTX
-// atom.add.f32) flushes subnormal operands and results to zero, the value
-// already in *p included, so it would drop a subnormal radiance (a weight
-// underflowing toward 0 times the map) that another lane of the pixel
-// added first. The first swap assumes the zeroed accumulator, so the
-// first miss of a pixel in a round costs one atomic.
-__device__ __forceinline__ void rt_add_radiance(float* p, float v,
-                                                bool lone) {
-  if (v == 0.0f) return;
-  if (lone) {
-    *p += v;
-    return;
-  }
-  int* q = reinterpret_cast<int*>(p);
-  int seen = 0;
-  int old = atomicCAS(q, seen, __float_as_int(v));
-  while (old != seen) {
-    seen = old;
-    old = atomicCAS(q, seen, __float_as_int(__int_as_float(seen) + v));
-  }
-}
-
 // Static layout: lane i of w; rad (w, 3); next (8, 2w) | (8, w) | unused.
 template <int V, int WALK>
 __global__ void __launch_bounds__(128) rt_round_kernel(
@@ -182,21 +176,23 @@ __global__ void __launch_bounds__(128) rt_round_kernel(
 }
 
 // Compacted layout: the first *count lanes of an SoA state of row length
-// cap, with their slots; radiance added into rad (n_pix, 3) at slot %
-// n_pix (the slots are distinct and below `width`), live lanes counted
-// into pixel_rays (n_pix,) when it is not null;
-// live children appended to next (8, next_cap) / next_slot / *next_count.
+// cap, with their slots (distinct and below `width`). Miss radiance: where
+// width <= n_pix, added to rad (n_pix, 3) at the lane's pixel; elsewhere
+// stored at slab (width, 3) row `slot` with bit slot / n_pix of
+// mask[pixel] set, for rt_fold_round_kernel (see the header). Live lanes
+// are counted into pixel_rays (n_pix,) when it is not null; live children
+// are appended to next (8, next_cap) / next_slot / *next_count.
 // A warp-uniform loop over the queue in steps of the grid's threads.
 template <int V, int WALK>
 __global__ void __launch_bounds__(128) rt_round_queue_kernel(
     RtRoundArgs a, const float* __restrict__ state,
     const int* __restrict__ slot, const int* __restrict__ count_in, int cap,
-    int width, int n_pix, float* __restrict__ rad, int* __restrict__ pixel_rays,
+    int width, int n_pix, float* __restrict__ rad, float* __restrict__ slab,
+    int* __restrict__ mask, int* __restrict__ pixel_rays,
     float* __restrict__ next, int* __restrict__ next_slot,
     int* __restrict__ next_count, int next_cap) {
   const int count = *count_in;
-  // Slots are distinct and below `width`, so a pixel has at most one lane.
-  const bool lone = width <= n_pix;
+  const bool lone = width <= n_pix;  // at most one lane per pixel
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   const int step = gridDim.x * blockDim.x;
@@ -210,9 +206,18 @@ __global__ void __launch_bounds__(128) rt_round_queue_kernel(
       s = slot[i];
       r = rt_round_lane<V, WALK>(a, state, (size_t)cap, i);
       const int p = s % n_pix;
-      rt_add_radiance(rad + 3 * (size_t)p, r.cr, lone);
-      rt_add_radiance(rad + 3 * (size_t)p + 1, r.cg, lone);
-      rt_add_radiance(rad + 3 * (size_t)p + 2, r.cb, lone);
+      if (r.missed && lone) {
+        float* dst = rad + 3 * (size_t)p;
+        dst[0] += r.cr;
+        dst[1] += r.cg;
+        dst[2] += r.cb;
+      } else if (r.missed) {
+        float* dst = slab + 3 * (size_t)s;
+        dst[0] = r.cr;
+        dst[1] = r.cg;
+        dst[2] = r.cb;
+        atomicOr(mask + p, (int)(1u << (s / n_pix)));
+      }
       if (pixel_rays != nullptr) atomicAdd(pixel_rays + p, 1);
     }
     if (V == RT_ROUND_RADIANCE) continue;
@@ -240,6 +245,32 @@ __global__ void __launch_bounds__(128) rt_round_queue_kernel(
       next_slot[pf] = s + width;
     }
   }
+}
+
+// The round sum of a compacted round of more than one lane per pixel: per
+// pixel p with mask[p] != 0, the slab rows j * n_pix + p of the set bits j
+// added to +0.0 in ascending j, that sum added to rad[p], the mask cleared.
+__global__ void __launch_bounds__(256) rt_fold_round_kernel(
+    const float* __restrict__ slab, int* __restrict__ mask, int n_pix,
+    float* __restrict__ rad) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_pix) return;
+  unsigned m = (unsigned)mask[p];
+  if (m == 0u) return;
+  mask[p] = 0;
+  float sr = 0.0f, sg = 0.0f, sb = 0.0f;
+  while (m != 0u) {
+    const int j = __ffs(m) - 1;
+    m &= m - 1u;
+    const float* src = slab + 3 * ((size_t)j * n_pix + p);
+    sr += src[0];
+    sg += src[1];
+    sb += src[2];
+  }
+  float* dst = rad + 3 * (size_t)p;
+  dst[0] += sr;
+  dst[1] += sg;
+  dst[2] += sb;
 }
 
 static RtRoundArgs rt_round_args(float tmin, float tmax, float ior, float r0,
@@ -299,8 +330,11 @@ extern "C" int rt_round(float tmin, float tmax, float ior, float r0,
 }
 
 // The compacted round over the queue (state (8, cap), slot (cap,), *count)
-// of a round of static width `width` (<= cap): rad (n_pix, 3) accumulates,
-// pixel_rays (n_pix,) counts when not null, and live children are appended
+// of a round of static width `width` (<= cap). Where width <= n_pix the
+// misses are added to rad (n_pix, 3) and slab and mask are unused (may be
+// null); elsewhere they go to slab (>= width rows of 3) and mask (n_pix,
+// all 0 on entry), and the caller runs rt_fold_round next. pixel_rays
+// (n_pix,) counts when not null, and live children are appended
 // to (next (8, next_cap), next_slot (next_cap,), *next_count) for the full
 // and children variants (unused, may be null, for radiance only). One
 // launch even when the queue is empty. The host does not know the count,
@@ -317,12 +351,17 @@ extern "C" int rt_round_queue(float tmin, float tmax, float ior, float r0,
                               const float* subs, const float* env,
                               const float* state, const int* slot,
                               const int* count, int cap, int width, int n_pix,
-                              float* rad, int* pixel_rays, float* next,
-                              int* next_slot, int* next_count, int next_cap,
+                              float* rad, float* slab, int* mask,
+                              int* pixel_rays, float* next, int* next_slot,
+                              int* next_count, int next_cap,
                               int variant, int n_supers, int n_clusters,
                               int cluster_size, int sub_tris, int env_h,
                               int env_w, int max_blocks, void* stream) {
-  if (max_blocks <= 0) return (int)cudaErrorInvalidValue;
+  if (max_blocks <= 0 || n_pix <= 0) return (int)cudaErrorInvalidValue;
+  // One mask bit per lane of a pixel.
+  if (width > n_pix &&
+      (slab == nullptr || mask == nullptr || (width - 1) / n_pix >= 32))
+    return (int)cudaErrorInvalidValue;
   const RtRoundArgs a =
       rt_round_args(tmin, tmax, ior, r0, tri, norm, supers, clusters, subs,
                     env, n_supers, n_clusters, cluster_size, sub_tris, env_h,
@@ -333,9 +372,20 @@ extern "C" int rt_round_queue(float tmin, float tmax, float ior, float r0,
   cudaStream_t s = (cudaStream_t)stream;
 #define RT_QUEUE_LAUNCH(V, WALK)                                            \
   rt_round_queue_kernel<V, WALK><<<grid, block, 0, s>>>(                    \
-      a, state, slot, count, cap, width, n_pix, rad, pixel_rays, next,      \
-      next_slot, next_count, next_cap)
+      a, state, slot, count, cap, width, n_pix, rad, slab, mask,            \
+      pixel_rays, next, next_slot, next_count, next_cap)
   RT_ROUND_DISPATCH(RT_QUEUE_LAUNCH)
 #undef RT_QUEUE_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// Folds the slab rows that mask (n_pix,) names into rad (n_pix, 3) and
+// clears the mask (rt_fold_round_kernel). Returns a cudaError_t.
+extern "C" int rt_fold_round(const float* slab, int* mask, int n_pix,
+                             float* rad, void* stream) {
+  if (n_pix <= 0) return 0;
+  const int block = 256;
+  rt_fold_round_kernel<<<(n_pix + block - 1) / block, block, 0,
+                         (cudaStream_t)stream>>>(slab, mask, n_pix, rad);
   return (int)cudaGetLastError();
 }

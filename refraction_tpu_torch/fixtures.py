@@ -5,7 +5,9 @@ Meshes and env maps come from `io.primitives` (numpy, e.g.
 module writes them in the formats the CLI reads: a Wavefront OBJ with
 ``v``/``vt``/``vn``/``f v/vt/vn`` lines (the reference's parser needs all
 three indices per corner) and a Radiance ``.hdr``. `paired_miss_lanes`
-is a round-kernel state for checking how a pixel's misses are summed.
+and `multi_miss_lanes` are round-kernel states for checking how a pixel's
+misses are summed; `two_balls` is a mesh whose ray trees put three
+misses of a pixel into one bounce round.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 
 from refraction_tpu_torch.io.hdr import write_hdr
 from refraction_tpu_torch.io.objmesh import MeshData
+from refraction_tpu_torch.io.primitives import make_icosphere
 
 
 def write_obj(path: str, mesh: MeshData) -> None:
@@ -35,22 +38,55 @@ def write_obj(path: str, mesh: MeshData) -> None:
         f.write("\n".join(lines) + "\n")
 
 
+def _miss_lanes(rng, m: int, wgt: np.ndarray) -> np.ndarray:
+    """(8, m) lane state of m live rays of weights ``wgt`` that miss every
+    mesh within radius 5 of the origin: from (0, 0, 6), outward in
+    directions jittered about +z."""
+    d = np.concatenate([rng.uniform(-1.0, 1.0, (2, m)), np.ones((1, m))])
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    o = np.zeros((3, m))
+    o[2] = 6.0
+    return np.ascontiguousarray(np.concatenate(
+        [o, d, np.ones((1, m)), wgt[None]]), np.float32)
+
+
 def paired_miss_lanes(p: int, seed: int = 0) -> np.ndarray:
     """(8, 2p) float32 round-kernel lane state (``ox oy oz dx dy dz cull
-    wgt``) of 2p live rays that miss every mesh within radius 5 of the
-    origin: from (0, 0, 6), outward in directions jittered about +z. With
-    pixel = slot % p, lanes i and p + i are two misses of pixel i: the
-    first p weigh 1e-39, so their radiance is subnormal, the last p 2e-37,
-    a small normal radiance beside which the subnormal still counts."""
+    wgt``) of 2p live rays that miss (`_miss_lanes`). With pixel = slot % p,
+    lanes i and p + i are two misses of pixel i: the first p weigh 1e-39,
+    so their radiance is subnormal, the last p 2e-37, a small normal
+    radiance beside which the subnormal still counts."""
+    return _miss_lanes(np.random.default_rng(seed), 2 * p,
+                       np.repeat([1e-39, 2e-37], p))
+
+
+def multi_miss_lanes(p: int, k: int, seed: int = 0) -> np.ndarray:
+    """(8, k*p) lane state of k*p live rays that miss (`_miss_lanes`):
+    lanes i, p + i, ..., (k-1)p + i are k misses of pixel i = slot % p.
+    Each lane's weight is drawn from three kinds: 1e-39 (a subnormal
+    radiance), 2e-37 to 4e-37 (a small normal one) and, three times in
+    five, 0.5 to 1. With three or more such terms the float32 sum of a
+    pixel depends on the order of the additions at over a tenth of the
+    pixels."""
     rng = np.random.default_rng(seed)
-    d = np.concatenate([rng.uniform(-1.0, 1.0, (2, 2 * p)),
-                        np.ones((1, 2 * p))])
-    d /= np.linalg.norm(d, axis=0, keepdims=True)
-    o = np.zeros((3, 2 * p))
-    o[2] = 6.0
-    wgt = np.repeat([1e-39, 2e-37], p)
-    return np.ascontiguousarray(np.concatenate(
-        [o, d, np.ones((1, 2 * p)), wgt[None]]), np.float32)
+    kind = rng.choice([0, 1, 2, 2, 2], k * p)
+    scale = rng.uniform(0.5, 1.0, k * p)
+    wgt = np.choose(kind, [np.full(k * p, 1e-39), 4e-37 * scale, scale])
+    return _miss_lanes(rng, k * p, wgt)
+
+
+def two_balls(subdivisions: int = 2) -> MeshData:
+    """Two icospheres of radius 0.8 side by side on the x axis (centres
+    +-0.9): rays reflected off one ball hit the other, so with three
+    reflections allowed some pixels, seen from the side (orbit angle 1.2),
+    have three lanes that miss in one bounce round."""
+    ball = make_icosphere(subdivisions, 0.8)
+    shift = np.float32([0.9, 0.0, 0.0])
+    return MeshData(
+        positions=np.concatenate([ball.positions - shift,
+                                  ball.positions + shift]),
+        normals=np.concatenate([ball.normals, ball.normals]),
+        uvs=np.concatenate([ball.uvs, ball.uvs]))
 
 
 def write_scene(directory: str, name: str, mesh: MeshData,

@@ -35,6 +35,7 @@ from refraction_tpu_torch.kernels.megakernel import (
     QueueRound,
     empty_queue,
     mega_round,
+    slot_order_sum,
 )
 from refraction_tpu_torch.ops.intersect import interpolate_normal, recompute_uv
 from refraction_tpu_torch.ops.shade import (
@@ -257,10 +258,11 @@ def render_pixels_mega(scene, origins: torch.Tensor, dirs: torch.Tensor,
 
     On CUDA tensors each round is one round-kernel launch and nothing
     waits for the host; on CPU tensors the rounds take their plain
-    version. N may be any positive count. Each round's miss radiance is
-    summed per pixel into its own zeroed (N, 3) buffer, then the rounds
-    are added in order, ``radiance + round sum``, as the static layout
-    associates them. With ``collect_stats`` returns (radiance,
+    version. N may be any positive count. Each round adds its per-pixel
+    sum (a pixel's misses in slot order) to the one running (N, 3)
+    radiance, ``radiance + round sum`` round after round, as the static
+    layout associates them: the image equals `static_wavefront`'s bit for
+    bit and is the same on every run. With ``collect_stats`` returns (radiance,
     {'rays_traced': int64 scalar tensor, 'slot_rounds': int, 'pixel_rays':
     (N,) int32}): the queue counts summed on the device (the live lanes
     entering each round), the static widths of every round, and the
@@ -268,18 +270,13 @@ def render_pixels_mega(scene, origins: torch.Tensor, dirs: torch.Tensor,
     """
     n = origins.shape[0]
     dev = origins.device
-    rounds = cfg.max_refract_depth + 1
-    sums = torch.zeros(rounds, n, 3, dtype=torch.float32, device=dev)
+    radiance = torch.zeros(n, 3, dtype=torch.float32, device=dev)
     pixel_rays = (torch.zeros(n, dtype=torch.int32, device=dev)
                   if collect_stats else None)
     counts = []
-    for k, (queue, _, run) in enumerate(wavefront_rounds(scene, origins, dirs,
-                                                         cfg)):
-        run(sums[k], pixel_rays)
+    for queue, _, run in wavefront_rounds(scene, origins, dirs, cfg):
+        run(radiance, pixel_rays)
         counts.append(queue.count)
-    radiance = sums[0]
-    for k in range(1, rounds):
-        radiance = radiance + sums[k]
     if collect_stats:
         return radiance, {
             "rays_traced": torch.cat(counts).sum(dtype=torch.int64),
@@ -293,7 +290,8 @@ def static_wavefront(scene, origins: torch.Tensor, dirs: torch.Tensor,
     """The wavefront in the static layout, the reference `render_pixels_mega`
     is held against (the JAX `render_pixels_mega`'s layout): every round's
     whole (8, W) state through `mega_round`, dead lanes included, and its
-    radiance summed over each pixel's lanes. Returns what
+    radiance summed over each pixel's lanes in slot order
+    (`slot_order_sum`). Returns what
     `render_pixels_mega` returns, the stats counted from the states: live
     lanes per round and per pixel, and the state widths."""
     n = origins.shape[0]
@@ -312,7 +310,7 @@ def static_wavefront(scene, origins: torch.Tensor, dirs: torch.Tensor,
                 dim=0, dtype=torch.int32)
             slot_rounds += state.shape[1]
         res = mega_round(scene, state, limits, want_reflect, want_children)
-        radiance = radiance + res.radiance.reshape(-1, n, 3).sum(dim=0)
+        radiance = radiance + slot_order_sum(res.radiance, n)
         state = res.children
     if collect_stats:
         return radiance, {"rays_traced": rays, "slot_rounds": slot_rounds,

@@ -44,6 +44,8 @@ SIGNATURES = {
                        _I, _I, _I, _I, _P, _P, _P, _P],
     # env, env_h, env_w, dirs, weight, n, out, stream
     "rt_env": [_P, _I, _I, _P, _P, _I, _P, _P],
+    # variant, env, env4, env_h, env_w, dirs, weight, n, out, stream
+    "rt_env_variant": [_I, _P, _P, _I, _I, _P, _P, _I, _P, _P],
     # scalars, tri, norm, supers, clusters, subs, env, out, width, height,
     # spp, inv_spp, max_refract, max_reflect, n_supers, n_clusters,
     # cluster_size, sub_tris, env_h, env_w, stream
@@ -55,16 +57,20 @@ SIGNATURES = {
     "rt_round": [_F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                  _I, _I, _I, _I, _I, _I, _I, _P],
     # tmin, tmax, ior, r0, tri, norm, supers, clusters, subs, env, state,
-    # slot, count, cap, width, n_pix, rad, pixel_rays, next, next_slot,
-    # next_count, next_cap, variant, n_supers, n_clusters, cluster_size,
-    # sub_tris, env_h, env_w, max_blocks, stream
+    # slot, count, cap, width, n_pix, rad, slab, mask, pixel_rays, next,
+    # next_slot, next_count, next_cap, variant, n_supers, n_clusters,
+    # cluster_size, sub_tris, env_h, env_w, max_blocks, stream
     "rt_round_queue": [_F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _I, _P],
+                       _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _P],
+    # slab, mask, n_pix, rad, stream
+    "rt_fold_round": [_P, _P, _I, _P, _P],
     # tri, o, d, cull, r, v, t_out, i_out, stream
     "rt_mt_visits": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
     # wmat, rhs, cull, r, v, t_out, i_out, stream
     "rt_woop_visits": [_P, _P, _P, _I, _I, _P, _P, _P],
+    # wmat, rhs, cull, r, v, passes, t_out, i_out, stream
+    "rt_woop_visits_tc": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     # variant, n_iter, sm, x, out, stream
     "rt_stall": [_I, _I, _P, _P, _P, _P],
 }

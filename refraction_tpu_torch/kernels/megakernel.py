@@ -23,13 +23,17 @@ version, ``mega_round_plain``, for CPU tensors.
 
 ``mega_round_queue`` is the same round over a compacted queue of live
 lanes (`LaneQueue`), the wavefront's layout: each queued lane carries its
-slot id, its index in the static layout above (pixel = slot % N). Its
-miss radiance is added into an (N, 3) accumulator at its pixel, and only
-its live children are appended to the next queue, the refraction child
-with slot s and the reflection child with s + W (W = the round's static
-width). On CUDA the kernel reads the live count on the device, so no
-round waits for the host; ``mega_round_queue_plain`` is its plain
-version, taken for CPU tensors.
+slot id, its index in the static layout above (pixel = slot % N). The
+round's miss radiance is added to an (N, 3) running radiance as the
+static layout's per-pixel sum, a pixel's lanes in slot order whatever the
+queue order (`slot_order_sum`), and only its live children are appended
+to the next queue, the refraction child with slot s and the reflection
+child with s + W (W = the round's static width). On CUDA the kernel reads
+the live count on the device, so no round waits for the host; where a
+round can put several lanes on a pixel (W > N) the lanes store their
+radiance in a scratch slab and a second small kernel, `fold_round_sums`,
+adds each pixel's entries in slot order. ``mega_round_queue_plain`` and
+``fold_round_sums_plain`` are the plain versions, taken for CPU tensors.
 """
 
 from __future__ import annotations
@@ -56,6 +60,9 @@ _FULL, _CHILDREN, _RADIANCE = 0, 1, 2
 # Grid cap of the compacted round, in 128-thread blocks per SM (PERF.md
 # PR 5: faster than an uncapped or an occupancy-sized grid).
 BLOCKS_PER_SM = 32
+# The most lanes of one pixel in a compacted round: one bit each of the
+# int32 mask that names their slab rows to the fold kernel.
+MASK_BITS = 32
 
 
 class RoundOut(NamedTuple):
@@ -69,8 +76,7 @@ class LaneQueue(NamedTuple):
     """The input or output of one compacted round: lanes ``[0, count)`` of
     ``state`` and ``slot`` are queued, in no fixed order. Their slots are
     distinct and below ``width``, as the wavefront makes them; the CUDA
-    kernel relies on it (a round of width <= N adds radiance without
-    atomics)."""
+    kernel relies on it (no two lanes write one radiance entry)."""
 
     state: torch.Tensor   # (8, cap) float32 lane state, row length cap
     slot: torch.Tensor    # (cap,) int32: each lane's index in the static layout
@@ -97,6 +103,18 @@ def _limits(limits: Sequence[float]) -> tuple[float, float, float, float]:
         raise ValueError(f"limits: want (tmin, tmax, ior, fresnel_r0), got "
                          f"{limits!r}")
     return tuple(f32(x) for x in limits)
+
+
+def slot_order_sum(radiance: torch.Tensor, n: int) -> torch.Tensor:
+    """(N, 3) per-pixel sums of a static round's (W, 3) lane radiance, W a
+    multiple of N: ``((0 + r[p]) + r[N + p]) + r[2N + p] ...``, a pixel's
+    lanes in ascending slot. The one order every wavefront of the package
+    sums in (``Tensor.sum`` leaves the order to the device)."""
+    lanes = radiance.reshape(-1, n, 3)
+    total = torch.zeros_like(lanes[0])
+    for j in range(lanes.shape[0]):
+        total = total + lanes[j]
+    return total
 
 
 def mega_round_plain(scene, state: torch.Tensor, limits: Sequence[float],
@@ -240,17 +258,25 @@ def mega_round_queue_plain(scene, queue: LaneQueue, limits: Sequence[float],
                            pixel_rays: torch.Tensor | None = None,
                            out: LaneQueue | None = None) -> None:
     """The compacted round in plain PyTorch: the queued lanes in slot
-    order through `mega_round_plain`, radiance and counts added at their
-    pixels in slot order, the live children (``torch.nonzero``) written to
-    ``out`` in slot order. Reads the count on the host."""
+    order through `mega_round_plain`; the round's radiance summed per
+    pixel over its lanes in ascending slot (`slot_order_sum` of the static
+    layout, whose other lanes add +0.0) and that sum added to
+    ``radiance``; counts added at their pixels; the live children
+    (``torch.nonzero``) written to ``out`` in slot order. Reads the count
+    on the host."""
     _check_queue_round(queue, want_reflect, want_children, radiance,
                        pixel_rays, out)
     c = int(queue.count)
+    n = radiance.shape[0]
     slot, order = torch.sort(queue.slot[:c], stable=True)
     res = mega_round_plain(scene, queue.state[:, :c][:, order].contiguous(),
                            limits, want_reflect, want_children)
-    pix = (slot % radiance.shape[0]).long()
-    radiance.index_add_(0, pix, res.radiance)
+    pix = (slot % n).long()
+    total = torch.zeros_like(radiance)
+    for j in range(-(-queue.width // n)):
+        at = torch.nonzero(slot // n == j).squeeze(1)  # distinct pixels
+        total[pix[at]] = total[pix[at]] + res.radiance[at]
+    radiance += total
     if pixel_rays is not None:
         pixel_rays.index_add_(0, pix, torch.ones_like(slot))
     if not want_children:
@@ -266,11 +292,72 @@ def mega_round_queue_plain(scene, queue: LaneQueue, limits: Sequence[float],
     out.count.fill_(k)
 
 
+def _check_fold(slab, mask, radiance) -> None:
+    n = mask.shape[0] if mask.dim() == 1 else -1
+    dev = radiance.device
+    rows = slab.shape[0] if slab.dim() == 2 else -1
+    if (n < 1 or mask.dtype != torch.int32 or radiance.shape != (n, 3)
+            or slab.shape != (rows, 3) or rows % n or rows > MASK_BITS * n
+            or {slab.dtype, radiance.dtype} != {torch.float32}
+            or {slab.device, mask.device} != {dev}
+            or not (slab.is_contiguous() and mask.is_contiguous()
+                    and radiance.is_contiguous())):
+        raise ValueError(
+            f"fold_round_sums: want contiguous float32 slab (J * N, 3), J <= "
+            f"{MASK_BITS}, int32 mask (N,) and float32 radiance (N, 3) on one "
+            f"device, got {slab.dtype} {tuple(slab.shape)}, {mask.dtype} "
+            f"{tuple(mask.shape)}, {radiance.dtype} {tuple(radiance.shape)}")
+
+
+def fold_round_sums_plain(slab: torch.Tensor, mask: torch.Tensor,
+                          radiance: torch.Tensor) -> None:
+    """`fold_round_sums` in plain PyTorch: slab rows whose bit is unset
+    count as +0.0, then `slot_order_sum`."""
+    _check_fold(slab, mask, radiance)
+    n = mask.shape[0]
+    bits = torch.arange(slab.shape[0] // n, dtype=torch.int32,
+                        device=mask.device)[:, None]
+    named = ((mask[None] >> bits) & 1).bool().reshape(-1, 1)
+    radiance += slot_order_sum(torch.where(named, slab, 0.0), n)
+    mask.zero_()
+
+
+def _fold(launch, slab, mask, radiance, stream) -> None:
+    check(launch(slab.data_ptr(), mask.data_ptr(), mask.shape[0],
+                 radiance.data_ptr(), stream), "rt_fold_round")
+    fold_round_sums.launches += 1
+
+
+def fold_round_sums(slab: torch.Tensor, mask: torch.Tensor,
+                    radiance: torch.Tensor) -> None:
+    """Adds to ``radiance`` (N, 3), per pixel p, the sum of the ``slab``
+    (J * N, 3) rows j * N + p whose bit j is set in ``mask`` (N,) int32,
+    added to +0.0 in ascending j, and clears ``mask``: the second half of
+    a compacted round of more than one lane per pixel (csrc/round.cu).
+    Rows whose bit is unset are never read and may be uninitialized. On
+    CUDA: one launch on the current stream, no host sync."""
+    _check_fold(slab, mask, radiance)
+    if radiance.device.type == "cpu":
+        fold_round_sums_plain(slab, mask, radiance)
+        return
+    if radiance.device.type != "cuda":
+        raise ValueError(f"fold_round_sums: unsupported device "
+                         f"{radiance.device}")
+    _fold(library().rt_fold_round, slab, mask, radiance,
+          torch.cuda.current_stream(radiance.device).cuda_stream)
+
+
+fold_round_sums.launches = 0
+
+
 class QueueRound:
     """`mega_round_queue` bound to one scene on one device, with the
     scene's tables and map checked and their pointers and the grid cap
     (BLOCKS_PER_SM per SM) taken once: the wavefront makes one per frame
-    and calls it per round, so a round costs the host one ctypes call. The
+    and calls it per round, so a round costs the host one ctypes call, or
+    two where it has several lanes per pixel (the round, then the fold).
+    It keeps the slab and the mask of those rounds, made at the first one
+    and reused by the later ones (the fold leaves the mask cleared). The
     rounds run on the stream that was current when it was made. On the CPU
     it takes the plain version."""
 
@@ -284,15 +371,30 @@ class QueueRound:
         check_envmap(scene, self.device)
         env = scene.envmap
         self._launch = library().rt_round_queue
+        self._launch_fold = library().rt_fold_round
         self._tables = tuple(x.data_ptr() for x in (
             scene.tri_packed, scene.tri_norm_packed, scene.super_bounds,
             scene.cluster_bounds, scene.sub_bounds, env))
         sms = torch.cuda.get_device_properties(
             self.device).multi_processor_count
+        self._stream = torch.cuda.current_stream(self.device).cuda_stream
         self._sizes = (scene.num_supers, scene.num_clusters,
                        scene.cluster_size, scene.sub_tris, env.shape[0],
-                       env.shape[1], BLOCKS_PER_SM * sms,
-                       torch.cuda.current_stream(self.device).cuda_stream)
+                       env.shape[1], BLOCKS_PER_SM * sms, self._stream)
+        self._slab = self._mask = None
+
+    def _scratch(self, width: int, n: int):
+        """(slab, mask) for a round of ``width`` lanes on ``n`` pixels."""
+        if width > MASK_BITS * n:
+            raise ValueError(f"queue.width {width}: more than {MASK_BITS} "
+                             f"lanes per pixel ({n} pixels)")
+        rows = -(-width // n) * n
+        if self._slab is None or self._slab.shape[0] < rows:
+            self._slab = torch.empty(rows, 3, dtype=torch.float32,
+                                     device=self.device)
+        if self._mask is None or self._mask.shape[0] != n:
+            self._mask = torch.zeros(n, dtype=torch.int32, device=self.device)
+        return self._slab, self._mask
 
     def __call__(self, queue: LaneQueue, limits: Sequence[float],
                  want_reflect: bool, want_children: bool,
@@ -306,11 +408,15 @@ class QueueRound:
             mega_round_queue_plain(self.scene, queue, limits, want_reflect,
                                    want_children, radiance, pixel_rays, out)
             return
+        n = radiance.shape[0]
+        slab, mask = ((None, None) if queue.width <= n
+                      else self._scratch(queue.width, n))
         err = self._launch(
             *_limits(limits), *self._tables, queue.state.data_ptr(),
             queue.slot.data_ptr(), queue.count.data_ptr(),
-            queue.state.shape[1], queue.width, radiance.shape[0],
-            radiance.data_ptr(),
+            queue.state.shape[1], queue.width, n, radiance.data_ptr(),
+            None if slab is None else slab.data_ptr(),
+            None if mask is None else mask.data_ptr(),
             None if pixel_rays is None else pixel_rays.data_ptr(),
             None if out is None else out.state.data_ptr(),
             None if out is None else out.slot.data_ptr(),
@@ -320,6 +426,8 @@ class QueueRound:
             else _FULL if want_reflect else _CHILDREN, *self._sizes)
         check(err, "rt_round_queue")
         mega_round_queue.launches += 1
+        if slab is not None:
+            _fold(self._launch_fold, slab, mask, radiance, self._stream)
 
 
 def mega_round_queue(scene, queue: LaneQueue, limits: Sequence[float],
@@ -329,14 +437,17 @@ def mega_round_queue(scene, queue: LaneQueue, limits: Sequence[float],
                      out: LaneQueue | None = None) -> None:
     """One bounce round of the compacted ``queue`` (see the module doc).
 
-    Adds each queued lane's miss radiance into ``radiance`` (N, 3) at
-    pixel slot % N and, with ``pixel_rays`` (N,) int32, one per queued
-    lane; with ``want_children`` appends the live children to ``out``,
-    whose count the caller sets (normally to 0) and whose width is the
-    next round's static width. ``limits`` as for `mega_round`. On CUDA:
-    one launch on the current stream, also for an empty queue, and no host
-    sync; the order of the appended lanes and of the float additions at a
-    pixel is not fixed.
+    Adds the round's miss radiance to ``radiance`` (N, 3): per pixel the
+    radiance of its queued lanes (pixel = slot % N) summed in ascending
+    slot, as the static layout sums them, then that sum added to the
+    pixel; with ``pixel_rays`` (N,) int32 adds one per queued lane; with
+    ``want_children`` appends the live children to ``out``, whose count
+    the caller sets (normally to 0) and whose width is the next round's
+    static width. ``limits`` as for `mega_round`. On CUDA:
+    one round-kernel launch on the current stream, also for an empty
+    queue, a `fold_round_sums` launch after it where ``queue.width`` > N,
+    and no host sync; the order of the appended lanes is not fixed, the
+    radiance is the same on every run.
     """
     _check_queue_round(queue, want_reflect, want_children, radiance,
                        pixel_rays, out)

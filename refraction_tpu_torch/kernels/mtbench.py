@@ -1,8 +1,8 @@
 """Sub-visit instrument kernels (``csrc/mtbench.cu``): port of the two
 Pallas bodies of ``tools/mxu_mt_bench.py``, ``_vpu_kernel`` (44) and
-``_mxu_kernel`` (96).
+``_mxu_kernel`` (96), the second in two forms.
 
-Both run V sub visits of 8 triangles against R rays with a carried
+All run V sub visits of 8 triangles against R rays with a carried
 winner; visit ``s`` reads sub record ``s % 64`` and names its triangles
 ``s*8 + k``. Misses end at ``t = 1e30``, ``i = 0``.
 
@@ -11,14 +11,30 @@ winner; visit ``s`` reads sub record ``s % 64`` and names its triangles
 - `woop_visits`: per visit the (48, 8) Woop rows of the sub times the ray
   column ``[ox oy oz 1 dx dy dz 0]``, summed over k = 0..7 in order,
   then ``t = -o'z/d'z`` and the packed-key min ``(bits(t) & ~7) | k``
-  over the 8 triangles (near-equal t fall to the lower k).
+  over the 8 triangles (near-equal t fall to the lower k). The product
+  runs on CUDA cores.
+- `woop_visits_tc`, `woop_visits_tc3`: the same function with the product
+  on the tensor cores (``mma.sync`` m16n8k8, TF32 operands, float32
+  accumulators), which is the question ``_mxu_kernel`` puts to the TPU's
+  matrix unit: one pass with both operands rounded to TF32 (`tf32_round`),
+  or three (3xTF32: ``x = hi + lo``, ``hi = tf32(x)``,
+  ``lo = tf32(x - hi)``, and ``lo*hi + hi*lo + hi*hi``).
 
 Rays are columns: ``o``/``d`` (3, R), ``rhs`` (8, R), ``cull`` (R,) with
 +1 accepting front faces and -1 back faces. `make_inputs` rebuilds the
 tool's own arrays (R = 1,024). Each wrapper launches its kernel for CUDA
 tensors and takes its plain version for CPU tensors; the plain versions
-run the kernels' float32 operations in the kernels' order, so the two
-agree bit for bit.
+run the kernels' float32 operations in the kernels' order, so `mt_visits`
+and `woop_visits` agree with theirs bit for bit. The tensor cores do not
+specify the order in which they add a row's eight products, so
+`woop_visits_tc*` agree with `woop_visits_tc_plain` (the same rounded
+operands, the products summed in float32 in K order) to a tolerance:
+`TC_T_RTOL` on t where both name the same triangle, and the same triangle
+on all but `TC_MISMATCH_SHARE` of the rays (an accept test or the packed
+key's three dropped bits deciding within the sum-order error). Measured
+on an NVIDIA H100 at V = 8, 70 and 512 with both cull mixes: the same
+triangle on every ray, t within 6.0e-5, and 61-72% (one pass) or 23-46%
+(3xTF32) of the rays equal bit for bit.
 """
 
 from __future__ import annotations
@@ -38,6 +54,9 @@ WOOP_K = 8         # ox oy oz 1 dx dy dz 0
 TMIN = 1e-3
 BIG = 1e30
 _SUB, _LANE = 8, 128  # the tool's (8, 128) ray planes
+# woop_visits_tc* against woop_visits_tc_plain (see the module doc).
+TC_T_RTOL = 2e-4
+TC_MISMATCH_SHARE = 0.01
 
 
 class MtInputs(NamedTuple):
@@ -176,23 +195,26 @@ def mt_visits_plain(tri_flat, o, d, cull, v: int):
     return bt, bi
 
 
-def woop_visits_plain(w, rhs, cull, v: int):
-    """`woop_visits` in plain PyTorch: per visit the (48, R) product as the
-    same ordered sum over k (not a matmul), then the epilogue and the
-    packed-key min over the 8 triangle rows."""
-    _check_woop(w, rhs, cull, v)
+def _ordered_product(ws, rhs, out=None):
+    """``out + ws @ rhs`` for ws (48, 8), rhs (8, R) as a sum over k =
+    0..7 in order, float32 products and adds (not a matmul)."""
+    for k in range(WOOP_K):
+        term = ws[:, k:k + 1] * rhs[k:k + 1]
+        out = term if out is None else out + term
+    return out
+
+
+def _woop_visits(product, rhs, cull, v: int):
+    """The Woop visits around ``product(s) -> (48, R)``, the outputs of
+    visit s: the epilogue and the packed-key min over the 8 triangle
+    rows, then the strict ``t < best`` across visits."""
     r = rhs.shape[1]
-    subs = w.reshape(SUBS, WOOP_ROWS, WOOP_K)
     k_idx = torch.arange(TRIS, dtype=torch.int32, device=rhs.device)[:, None]
     one = torch.ones(TRIS, r, dtype=torch.float32, device=rhs.device)
     bt = torch.full((r,), BIG, dtype=torch.float32, device=rhs.device)
     bi = torch.zeros(r, dtype=torch.int32, device=rhs.device)
     for s in range(v):
-        ws = subs[s % SUBS]
-        out = ws[:, 0:1] * rhs[0:1]
-        for k in range(1, WOOP_K):
-            out = out + ws[:, k:k + 1] * rhs[k:k + 1]
-        oxp, oyp, ozp, dxp, dyp, dzp = out.reshape(6, TRIS, r)
+        oxp, oyp, ozp, dxp, dyp, dzp = product(s).reshape(6, TRIS, r)
         inv = one / dzp
         t = -ozp * inv
         u = oxp + t * dxp
@@ -207,6 +229,49 @@ def woop_visits_plain(w, rhs, cull, v: int):
         bt = torch.where(upd, rt, bt)
         bi = torch.where(upd, s * TRIS + win, bi)
     return bt, bi
+
+
+def woop_visits_plain(w, rhs, cull, v: int):
+    """`woop_visits` in plain PyTorch: per visit the (48, R) product as the
+    same ordered sum over k (not a matmul), then the epilogue and the
+    packed-key min over the 8 triangle rows."""
+    _check_woop(w, rhs, cull, v)
+    subs = w.reshape(SUBS, WOOP_ROWS, WOOP_K)
+    return _woop_visits(lambda s: _ordered_product(subs[s % SUBS], rhs),
+                        rhs, cull, v)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits): to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds, done on the bits: add
+    half a TF32 ulp (0x1000) to the magnitude and clear the low 13 bits.
+    Subnormals round on the same grid; the largest finite values round to
+    infinity; for finite inputs."""
+    return ((x.contiguous().view(torch.int32) + 0x1000)
+            & ~0x1FFF).view(torch.float32)
+
+
+def woop_visits_tc_plain(w, rhs, cull, v: int, passes: int = 1):
+    """`woop_visits_tc` (``passes`` 1) and `woop_visits_tc3` (3) in plain
+    PyTorch: the operands rounded (and split) as the kernel does, every
+    product exact in float32, summed in float32 over k = 0..7 and, for
+    three passes, over ``lo*hi``, ``hi*lo``, ``hi*hi`` in that order; then
+    `woop_visits_plain`'s epilogue."""
+    _check_woop(w, rhs, cull, v)
+    if passes not in (1, 3):
+        raise ValueError(f"passes: want 1 (TF32) or 3 (3xTF32), got {passes}")
+    w_hi, k_hi = tf32_round(w), tf32_round(rhs)
+    w_lo, k_lo = tf32_round(w - w_hi), tf32_round(rhs - k_hi)
+    hi, lo = (x.reshape(SUBS, WOOP_ROWS, WOOP_K) for x in (w_hi, w_lo))
+
+    def product(s):
+        out = None
+        if passes == 3:
+            out = _ordered_product(lo[s % SUBS], k_hi)
+            out = _ordered_product(hi[s % SUBS], k_lo, out)
+        return _ordered_product(hi[s % SUBS], k_hi, out)
+
+    return _woop_visits(product, rhs, cull, v)
 
 
 def mt_visits(tri_flat, o, d, cull, v: int):
@@ -253,5 +318,59 @@ def woop_visits(w, rhs, cull, v: int):
     return t, i
 
 
+def _woop_visits_tc(wrapper, passes: int, w, rhs, cull, v: int):
+    _check_woop(w, rhs, cull, v)
+    if rhs.device.type == "cpu":
+        return woop_visits_tc_plain(w, rhs, cull, v, passes)
+    if rhs.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__}: unsupported device "
+                         f"{rhs.device}")
+    r = rhs.shape[1]
+    t, i = _empty_out(r, rhs.device)
+    if r == 0:
+        return t, i
+    err = library().rt_woop_visits_tc(
+        w.data_ptr(), rhs.data_ptr(), cull.data_ptr(), r, v, passes,
+        t.data_ptr(), i.data_ptr(),
+        torch.cuda.current_stream(rhs.device).cuda_stream)
+    check(err, "rt_woop_visits_tc")
+    wrapper.launches += 1
+    return t, i
+
+
+def woop_visits_tc(w, rhs, cull, v: int):
+    """`woop_visits` with the product on the tensor cores in one TF32 pass
+    (both operands rounded to 10 mantissa bits); see the module doc. On
+    CUDA: one launch, no host sync."""
+    return _woop_visits_tc(woop_visits_tc, 1, w, rhs, cull, v)
+
+
+def woop_visits_tc3(w, rhs, cull, v: int):
+    """`woop_visits` with the product on the tensor cores as 3xTF32 (three
+    passes over split operands, close to float32); see the module doc. On
+    CUDA: one launch, no host sync."""
+    return _woop_visits_tc(woop_visits_tc3, 3, w, rhs, cull, v)
+
+
+def tc_agreement(got, ref) -> dict:
+    """How a tensor-core result (t, i) agrees with its plain version's:
+    ``exact`` (share of rays with equal t bits and equal i), ``same_i``
+    (share with the same triangle or both a miss), ``t_rel`` (largest
+    relative t difference over rays with the same triangle hit), and
+    ``ok`` by `TC_T_RTOL` and `TC_MISMATCH_SHARE`."""
+    (tk, ik), (tp, ip) = got, ref
+    hit_k, hit_p = tk < 1e29, tp < 1e29
+    same = (hit_k == hit_p) & ((ik == ip) | ~hit_p)
+    both = same & hit_p
+    t_rel = (float(((tk - tp).abs() / tp.abs())[both].max())
+             if bool(both.any()) else 0.0)
+    exact = float(((tk == tp) & (ik == ip)).float().mean())
+    same_i = float(same.float().mean())
+    return {"exact": exact, "same_i": same_i, "t_rel": t_rel,
+            "ok": t_rel <= TC_T_RTOL and 1.0 - same_i <= TC_MISMATCH_SHARE}
+
+
 mt_visits.launches = 0
 woop_visits.launches = 0
+woop_visits_tc.launches = 0
+woop_visits_tc3.launches = 0

@@ -1,11 +1,13 @@
 """Sub-visit instrument: Möller–Trumbore vs Woop on one 8-triangle sub
 visit, port of ``tools/mxu_mt_bench.py``.
 
-Both kernels (kernels/mtbench.py) run V and then 4V sub visits over the
-tool's 1,024 rays (`make_inputs(0)`). The first line is the card; then
-the parity line (hit share of each kernel, share of hits whose t agree
-to rtol 1e-3 and whose winner index is equal), and per kernel the
-per-visit cost as the slope between V and 4V of the median call time
+Four kernels (kernels/mtbench.py) run V and then 4V sub visits over the
+tool's 1,024 rays (`make_inputs(0)`): ``mt`` (Möller–Trumbore), ``woop``
+(the Woop product on CUDA cores), ``woop_tc`` and ``woop_tc3`` (the
+product on the tensor cores, in one TF32 pass or as 3xTF32). The first
+line is the card; then one parity line per Woop form against ``mt`` (hit
+share of each kernel, share of the MT hits whose t agree to rtol 1e-3 and
+whose winner index is equal), and per kernel the per-visit cost as the slope between V and 4V of the median call time
 over ``reps`` calls, which removes the per-call launch cost:
 
     python -m refraction_tpu_torch.mxu_mt_bench [V] [reps]      # 512 50
@@ -30,6 +32,8 @@ from refraction_tpu_torch.kernels.mtbench import (
     mt_visits,
     woop_args,
     woop_visits,
+    woop_visits_tc,
+    woop_visits_tc3,
 )
 from refraction_tpu_torch.timing import card_line, require_device, time_ms
 
@@ -74,14 +78,19 @@ def main(argv=None) -> int:
     print(card_line(device), flush=True)
     v, v2 = args.V, args.V * 4
     inp = make_inputs(0)
+    woop_a = woop_args(inp, device)
     kernels = (("mt", mt_visits, mt_args(inp, device)),
-               ("woop", woop_visits, woop_args(inp, device)))
+               ("woop", woop_visits, woop_a),
+               ("woop_tc", woop_visits_tc, woop_a),
+               ("woop_tc3", woop_visits_tc3, woop_a))
     outs = [fn(*a, v) for _, fn, a in kernels]
     for _, fn, a in kernels:
         fn(*a, v2)
-    p = parity(*outs)
-    print(f"hits mt={p['hits_mt']:.3f} woop={p['hits_woop']:.3f} "
-          f"t match={p['t_match']:.4f} i match={p['i_match']:.4f}", flush=True)
+    for (name, _, _), out in zip(kernels[1:], outs[1:]):
+        p = parity(outs[0], out)
+        print(f"hits mt={p['hits_mt']:.3f} {name}={p['hits_woop']:.3f} "
+              f"t match={p['t_match']:.4f} i match={p['i_match']:.4f}",
+              flush=True)
 
     def med_ms(fn, a, visits):
         ts = sorted(time_ms(lambda: fn(*a, visits), device)

@@ -8,7 +8,8 @@ warm-up call. On ``--device cuda`` the timings are the card's time
 (`timing.device_ms`: CUDA events around the call, queued behind a spin
 kernel so that the host's launch overhead is not counted; the next
 queue's count is zeroed before each call, outside the timed window, so a
-round's time is its one launch); on ``--device cpu`` they are
+round's time is its launches alone: the round kernel and, from the first
+round of more than one lane per pixel on, the fold kernel); on ``--device cpu`` they are
 wall-clock time over the plain version. The last line sums the rounds;
 the live lanes sum to the frame's ``rays_traced``.
 

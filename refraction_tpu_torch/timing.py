@@ -58,6 +58,21 @@ def device_ms(fn, device: torch.device, setup=None) -> float:
     return ev0.elapsed_time(ev1)
 
 
+def card_ms(fn, reps: int, device: torch.device) -> float:
+    """The card's mean ms per call of ``fn`` over ``reps`` calls queued
+    behind one spin kernel (`device_ms`), after one warm-up call: for
+    kernels that run shorter than their wrapper takes to enqueue."""
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+    def calls():
+        for _ in range(reps):
+            fn()
+
+    return device_ms(calls, device) / reps
+
+
 def card_line(device: torch.device) -> str:
     """The card's name and power limit as nvidia-smi reports them, or a
     note that the device is the CPU."""

@@ -6,7 +6,11 @@ and shading round like the plain float32 versions; images may still differ
 in a few pixels where float noise flips a texel or a total-internal-
 reflection test, so image bars are RMSE and a share of pixels. The
 instrument kernels (mtbench, stallbench) run the plain versions' float32
-operations in the same order, so they are compared exactly.
+operations in the same order, so they are compared exactly; the
+tensor-core Woop kernel, whose mma adds its products in an order the
+hardware does not specify, is held to kernels/mtbench.py ``tc_agreement``.
+The compacted round sums a pixel's misses in slot order, so it and the
+wavefront are compared with the static layout bit for bit.
 """
 
 import numpy as np
@@ -18,7 +22,8 @@ from refraction_tpu_torch import RenderConfig
 from refraction_tpu_torch.camera import orbit_camera
 from refraction_tpu_torch.io.primitives import (
     make_cube, make_gradient_envmap, make_icosphere)
-from refraction_tpu_torch.fixtures import paired_miss_lanes
+from refraction_tpu_torch.fixtures import (
+    multi_miss_lanes, paired_miss_lanes, two_balls)
 from refraction_tpu_torch.integrator import (
     initial_state, render_pixels, render_pixels_mega, static_wavefront)
 from refraction_tpu_torch.camera import generate_rays
@@ -29,11 +34,13 @@ from refraction_tpu_torch.kernels.framekernel import (
 from refraction_tpu_torch.kernels.intersect import (
     closest_hit, closest_hit_plain)
 from refraction_tpu_torch.kernels.megakernel import (
-    LaneQueue, empty_queue, mega_round, mega_round_plain, mega_round_queue,
-    mega_round_queue_plain)
+    LaneQueue, empty_queue, fold_round_sums, fold_round_sums_plain,
+    mega_round, mega_round_plain, mega_round_queue, mega_round_queue_plain,
+    slot_order_sum)
 from refraction_tpu_torch.kernels.mtbench import (
-    make_inputs, mt_args, mt_visits, mt_visits_plain, woop_args, woop_visits,
-    woop_visits_plain)
+    make_inputs, mt_args, mt_visits, mt_visits_plain, tc_agreement,
+    woop_args, woop_visits, woop_visits_plain, woop_visits_tc,
+    woop_visits_tc3, woop_visits_tc_plain)
 from refraction_tpu_torch.kernels.stallbench import (
     VARIANTS, mixed_carry, stall_iters, stall_iters_plain)
 from refraction_tpu_torch.ops.backends import get_backend
@@ -353,7 +360,7 @@ def test_round_queue_kernel_keeps_a_subnormal_miss_beside_a_normal_one(
     p = 1 << 14
     state = torch.from_numpy(paired_miss_lanes(p, seed=4)).to(cuda)
     static = mega_round(scene, state, limits, False, False).radiance
-    want = static.reshape(2, p, 3).sum(dim=0)
+    want = slot_order_sum(static, p)
     assert bool((want != static[p:]).any())  # the subnormals count
     order = torch.arange(2 * p, device=cuda)
     if first == "normal":
@@ -368,8 +375,8 @@ def test_round_queue_kernel_keeps_a_subnormal_miss_beside_a_normal_one(
 
 @pytest.mark.parametrize("name", ["cube", "sphere"])
 def test_compacted_wavefront_equals_static_wavefront(cuda, name):
-    """Stats exactly, the image to 1e-7 RMSE / 1e-6 max (a pixel's misses
-    within a round are added with atomics in no fixed order)."""
+    """Stats exactly and the image bit for bit (both layouts sum a
+    pixel's misses in slot order)."""
     scene = scene_from_jax(_scenes()[name], cuda)
     cfg = RenderConfig(width=250, height=190)
     o, d = generate_rays(orbit_camera(0.6, cfg), 250, 190, cuda)
@@ -381,9 +388,7 @@ def test_compacted_wavefront_equals_static_wavefront(cuda, name):
     assert int(st["rays_traced"]) == int(st_s["rays_traced"]) > n
     assert torch.equal(st["pixel_rays"], st_s["pixel_rays"])
     assert st["slot_rounds"] == st_s["slot_rounds"]
-    diff = (img - ref).abs()
-    assert float(torch.sqrt(torch.mean(diff.double() ** 2))) < 1e-7
-    assert float(diff.max()) < 1e-6
+    assert torch.equal(img, ref)
 
 
 def test_wavefront_does_not_sync_the_host(cuda):
@@ -398,3 +403,182 @@ def test_wavefront_does_not_sync_the_host(cuda):
         render_pixels_mega(scene, o, d, cfg, collect_stats=True)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("order", ["slot", "reversed", "rolled", "shuffled"])
+@pytest.mark.parametrize("k", [3, 4])
+def test_round_queue_kernel_sums_three_and_four_misses_in_slot_order(
+        cuda, k, order):
+    """Three and four misses of every pixel in one round (subnormal, small
+    and ordinary radiance mixed), in several queue orders, twice each: the
+    kernel's sums equal the static layout's and the plain version's bit
+    for bit, on top of a radiance already there; the round is one round
+    launch and one fold launch."""
+    scene = scene_from_jax(_scenes()["sphere"], cuda)
+    limits = (1e-3, 1000.0, 1.3, 0.00826446)
+    p = 1 << 13
+    state = torch.from_numpy(multi_miss_lanes(p, k, seed=31)).to(cuda)
+    static = mega_round(scene, state, limits, False, False).radiance
+    want = slot_order_sum(static, p)
+    backwards = slot_order_sum(static.reshape(k, p, 3).flip(0).reshape(-1, 3),
+                               p)
+    assert float((backwards != want).any(dim=1).float().mean()) > 0.1
+    m = k * p
+    idx = {"slot": torch.arange(m), "reversed": torch.arange(m).flip(0),
+           "rolled": torch.arange(m).roll(m // 3),
+           "shuffled": torch.randperm(
+               m, generator=torch.Generator().manual_seed(32))}[order].to(cuda)
+    before = torch.rand(p, 3, generator=torch.Generator().manual_seed(33)
+                        ).to(cuda)
+    for fn in (mega_round_queue, mega_round_queue, mega_round_queue_plain):
+        rad = before.clone()
+        counts = (mega_round_queue.launches, fold_round_sums.launches)
+        fn(scene, _queue(m, m, cuda, state[:, idx], idx.to(torch.int32)),
+           limits, False, False, rad)
+        torch.cuda.synchronize()
+        made = int(fn is mega_round_queue)
+        assert (mega_round_queue.launches, fold_round_sums.launches) == (
+            counts[0] + made, counts[1] + made)
+        assert torch.equal(rad, before + want)
+
+
+@pytest.mark.parametrize("j", [2, 4, 8])
+def test_fold_kernel_equals_plain(cuda, j):
+    """The fold kernel against its plain version: only the rows the mask
+    names are read (NaN elsewhere), the mask comes back cleared."""
+    n = 50001
+    g = torch.Generator().manual_seed(j)
+    lanes = (torch.rand(j * n, 3, generator=g)
+             * 10.0 ** torch.randint(-8, 1, (j * n, 1), generator=g)).to(cuda)
+    bits = torch.randint(0, 2, (j, n), generator=g, dtype=torch.int32).to(cuda)
+    mask = (bits << torch.arange(j, dtype=torch.int32, device=cuda)[:, None]
+            ).sum(dim=0, dtype=torch.int32)
+    slab = torch.where(bits.bool().reshape(-1, 1), lanes,
+                       torch.full_like(lanes, float("nan")))
+    before = torch.rand(n, 3, generator=g).to(cuda)
+    out = []
+    for fn in (fold_round_sums, fold_round_sums_plain):
+        rad, msk = before.clone(), mask.clone()
+        launches = fold_round_sums.launches
+        fn(slab, msk, rad)
+        torch.cuda.synchronize()
+        assert fold_round_sums.launches == launches + (fn is fold_round_sums)
+        assert not bool(msk.any())
+        out.append(rad)
+    assert torch.equal(out[0], out[1])
+    assert bool(torch.isfinite(out[0]).all())
+
+
+def test_compacted_wavefront_with_three_misses_of_a_pixel(cuda):
+    """Two balls, three reflections: pixels with three misses in a round.
+    The image equals the static layout's bit for bit, twice in a row."""
+    scene = scene_from_jax(build_scene(two_balls(3), make_gradient_envmap(),
+                                       128)[0], cuda)
+    cfg = RenderConfig(width=320, height=240, max_refract_depth=5,
+                       max_reflect_depth=3)
+    o, d = generate_rays(orbit_camera(1.2, cfg), 320, 240, cuda)
+    n = o.shape[0]
+    state, most = initial_state(o, d), 0
+    for count in range(cfg.max_refract_depth + 1):
+        primary = count == 0
+        res = mega_round(scene, state,
+                         (cfg.primary_tmin if primary else cfg.secondary_tmin,
+                          cfg.primary_tmax if primary else cfg.secondary_tmax,
+                          cfg.ior, cfg.fresnel_r0),
+                         count < 3, count < 5)
+        misses = (res.radiance != 0).any(dim=1).reshape(-1, n).sum(dim=0)
+        most = max(most, int(misses.max()))
+        state = res.children
+    assert most >= 3
+    ref, st_s = static_wavefront(scene, o, d, cfg, collect_stats=True)
+    for _ in range(2):
+        img, st = render_pixels_mega(scene, o, d, cfg, collect_stats=True)
+        assert torch.equal(img, ref)
+        assert torch.equal(st["pixel_rays"], st_s["pixel_rays"])
+
+
+@pytest.mark.parametrize("v", [8, 70, 512])
+@pytest.mark.parametrize("cull", ["ones", "mix"])
+def test_woop_tc_kernels_agree_with_plain(cuda, cull, v):
+    """The tensor-core Woop kernel, one TF32 pass and 3xTF32, against its
+    plain version by `tc_agreement` (t to TC_T_RTOL where the winner is the
+    same, the winner the same on all but TC_MISMATCH_SHARE of the rays);
+    each call is one launch of its own wrapper."""
+    inp = make_inputs(0)
+    c = (None if cull == "ones" else
+         np.random.default_rng(7).choice(np.float32([-1.0, 1.0]), 1024))
+    args = woop_args(inp, cuda, c)
+    for fn, passes in ((woop_visits_tc, 1), (woop_visits_tc3, 3)):
+        before = (woop_visits_tc.launches, woop_visits_tc3.launches)
+        got = fn(*args, v)
+        after = (woop_visits_tc.launches, woop_visits_tc3.launches)
+        assert after == (before[0] + (passes == 1), before[1] + (passes == 3))
+        ref = woop_visits_tc_plain(*args, v, passes)
+        torch.cuda.synchronize()
+        agree = tc_agreement(got, ref)
+        assert agree["ok"], (passes, agree)
+        assert bool((got[0] < 1e29).float().mean() > 0.9)
+    # 3xTF32 against the exact Woop kernel: the same winner nearly always.
+    exact = woop_visits(*args, v)
+    assert float((fn(*args, v)[1] == exact[1]).float().mean()) >= 0.995
+
+
+def test_woop_tc_kernel_on_a_ragged_ray_count(cuda):
+    """R = 1,000 is not a multiple of a warp's 32 rays or a tile's 8: the
+    rays past the end are fed as zeros and not written."""
+    inp = make_inputs(0)
+    w, rhs, cull = woop_args(inp, cuda)
+    rhs, cull = rhs[:, :1000].contiguous(), cull[:1000].contiguous()
+    for fn, passes in ((woop_visits_tc, 1), (woop_visits_tc3, 3)):
+        agree = tc_agreement(fn(w, rhs, cull, 64),
+                             woop_visits_tc_plain(w, rhs, cull, 64, passes))
+        assert agree["ok"], (passes, agree)
+
+
+def test_env_kernel_at_odd_counts_and_offsets(cuda):
+    """Small and odd counts, mostly dead weights, NaN and negative
+    weights (zero out), and inputs that start at any offset."""
+    scene = scene_from_jax(
+        build_scene(make_cube(2.0), make_gradient_envmap(512, 1024), 8)[0],
+        cuda)
+    g = torch.Generator().manual_seed(9)
+    for n in (1, 3, 4, 5, 1023, 50002):
+        _, d, _ = _rays(n, n, cuda)
+        w = torch.rand(n, generator=g)
+        w[torch.rand(n, generator=g) < 0.9] = 0.0
+        w[::11] = -1.0
+        w[5::13] = float("nan")
+        w = w.to(cuda)
+        got = env_contribution(scene, d, w)
+        ref = env_contribution_plain(scene, d, w)
+        assert float((got == ref).all(dim=1).double().mean()) >= AGREE
+        assert bool((got[~(w > 0)] == 0).all())
+    _, d, _ = _rays(9, 1, cuda)
+    w = torch.ones(9, device=cuda)
+    got = env_contribution(scene, d[1:], w[1:])  # views at odd offsets
+    assert torch.equal(got, env_contribution_plain(scene, d[1:], w[1:]))
+
+
+def test_env_variants_equal_the_env_kernel(cuda):
+    """The three forms kept as an instrument (csrc/env_variants.cu; timed
+    by env_times --variants) equal the env kernel bit for bit at counts
+    around their tails, and the forms that move 16-byte words refuse a
+    pointer off a 16-byte boundary."""
+    from refraction_tpu_torch.env_times import VARIANTS, env_inputs, env_variant
+
+    scene = scene_from_jax(
+        build_scene(make_cube(2.0), make_gradient_envmap(512, 1024), 8)[0],
+        cuda)
+    env = scene.envmap
+    env4 = torch.cat([env, torch.zeros_like(env[..., :1])], dim=2).contiguous()
+    for n in (1, 3, 4, 255, 256, 257, 1023, 50002):
+        d, w = env_inputs(n, 0.3, cuda, seed=n)
+        want = env_contribution(scene, d, w)
+        for name, v in VARIANTS.items():
+            assert torch.equal(env_variant(v, scene, env4, d, w), want), (
+                name, n)
+    d, w = env_inputs(9, 1.0, cuda)
+    with pytest.raises(RuntimeError, match="rt_env_variant"):
+        env_variant(VARIANTS["rays4"], scene, env4, d[1:], w[1:])
+    with pytest.raises(RuntimeError, match="rt_env_variant"):
+        env_variant(7, scene, env4, d, w)

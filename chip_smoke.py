@@ -23,12 +23,16 @@ Phases (any failure raises; nothing is caught):
   4. frame kernel vs the eager integrator at 256x192 (five cases) and on
      the 81,920-triangle scene at 160x90, each with the traversal walk it
      took (flat: at most 32 clusters; supers);
-  5. the CLI on the demo configuration (1024x768, 5/2 bounces, 8 orbit
-     frames, 1,280 triangles) and on the large scene (1920x1080, 4
-     bounces, 4 frames, 81,920 triangles); the frame kernel must be
-     launched exactly once per frame; then its ptxas line (registers,
-     stack, spills), its device time at demo, demo spp 4 and large, and
-     each one's bound (bounds.py: the traversal work of the frame's rays);
+  5. the CLI with ``--backend cuda`` on the demo configuration (1024x768,
+     5/2 bounces, 8 orbit frames, 1,280 triangles) and on the large scene
+     (1920x1080, 4 bounces, 4 frames, 81,920 triangles); the frame kernel
+     must be launched exactly once per frame, and every file the pipelined
+     loop wrote (PNG and .npy) must equal a frame-by-frame render, byte for
+     byte; then ``--profile`` on the demo scene, whose trace must name the
+     frame kernel's CUDA symbol; then the frame kernel's ptxas line
+     (registers, stack, spills), its device time at demo, demo spp 4 and
+     large, and each one's bound (bounds.py: the traversal work of the
+     frame's rays);
   6. the round kernel in both layouts on 2^16 lanes (with subnormal
      weights), per variant: the static layout vs its plain version; the
      compacted layout (a shuffled queue of the live lanes) vs its plain
@@ -64,10 +68,18 @@ Phases (any failure raises; nothing is caught):
      stall variants equal their plain version exactly at n_iter 64 and
      70, on the tool's all-ones carry and on one whose elements differ;
      then the CLIs ``mxu_mt_bench`` and ``stallbench`` at the
-     tools' default sizes (ns/visit, ns/iter), with their launches
-     counted;
-  8. the CLI flags on CUDA, each run with every count set to 0 just
-     before and read just after: ``--instances`` (three instances, one of
+     tools' default sizes (ns/visit; ns/iter of each stall variant at
+     N = 200,000 beside its bound, bounds.stall_bound: the larger of the
+     throughput floor and the dependent chain's latency floor), with their
+     launches counted;
+  8. the modular path (``make_renderer(..., use_mega=False)``: the eager
+     integrator over the closest-hit and env kernels) at 256x192 on the
+     demo scene, one launch of each per bounce level, held against its
+     plain version (the brute force on the card) and the frame kernel,
+     and timed at the demo shape; then the CLI flags on CUDA, each run
+     with every count set to 0 just before and read just after:
+     ``--backend torch`` at 64x48 (no kernel launch; the PNG equal to the
+     eager render's), ``--instances`` (three instances, one of
      mask 0; 1024x768, 5/2 bounces, 4 frames; a 256x192 frame held
      against the eager integrator over the closest-hit and env kernels),
      ``--accumulate`` 4 frames then ``--resume`` 2 (equal to the mean of
@@ -80,18 +92,24 @@ Phases (any failure raises; nothing is caught):
 The line before the last is a JSON object with each kernel's launches in
 its main-path phase (5 for the frame kernel, 6 for the round kernel in
 both layouts: ``round_queue`` and ``round_fold`` on the wavefront path,
-``round`` on the static-layout wavefronts held against it; 8 for the closest-hit and env
-kernels, the CLIs of 7 for the instruments), its error against the plain version, both times and its
+``round`` on the static-layout wavefronts held against it; the modular
+path of 8 for the closest-hit and env kernels, the CLIs of 7 for the
+instruments), its error against the plain version, both times and its
 bound (bounds.py; ``library_ms`` is null: no single PyTorch call computes
-any of these functions); the last line is ``{"ok": true, "device":
+any of these functions; the stall entry's bound is the sum of the six
+variants' bounds, whose latency floor is a count of dependent operations
+and so reported on the operations side); the last line is ``{"ok": true, "device":
 {...}}``. Without CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import logging
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -262,7 +280,7 @@ def main() -> int:
     from refraction_tpu_torch.kernels.stallbench import (
         VARIANTS as STALL_VARIANTS, mixed_carry, stall_iters,
         stall_iters_plain)
-    from refraction_tpu_torch.render import render_heatmap
+    from refraction_tpu_torch.render import make_renderer, render_heatmap
     from refraction_tpu_torch.io.png import load_png
     from refraction_tpu_torch.timing import card_ms, device_ms
 
@@ -472,7 +490,7 @@ def main() -> int:
                            "--width", str(wd), "--height", str(ht),
                            "--bounces", str(bounces), "--spp", "1",
                            "--frames", str(frames), "--out", out, "--raw",
-                           "--device", "cuda"])
+                           "--backend", "cuda", "--device", "cuda"])
             torch.cuda.synchronize()
             got = fused_radiance.launches - before
             if rc != 0 or got != frames:
@@ -521,6 +539,47 @@ def main() -> int:
                          envmap_path=paths["large"][1])
     large = scene_from_jax(load_scene(cfg_l)[0], dev)
     cfg_4 = cfg.replace(spp=4)
+    # Every file the pipelined loop wrote equals a frame-by-frame render:
+    # the .npy bit for bit, the PNG byte for byte (written again here from
+    # the frame's to_u8).
+    ref_png = os.path.join(tmp, "ref.png")
+    for (tag, *_, frames), sc, c in zip(runs, (demo, large), (cfg, cfg_l)):
+        angle = 0.01
+        for i in range(frames):
+            img = fused_radiance(sc, build_scalars(
+                orbit_camera(angle, c), c, sample_offsets(1), dev), c)
+            stem = os.path.join(tmp, tag, f"frame_{i:04d}")
+            cli.write_png(ref_png, cli.to_u8(img).cpu().numpy())
+            with open(stem + ".png", "rb") as f, open(ref_png, "rb") as g:
+                same_png = f.read() == g.read()
+            if not (same_png and np.array_equal(np.load(stem + ".npy"),
+                                                img.cpu().numpy())):
+                raise AssertionError(f"{tag} frame {i}: the loop's files "
+                                     "differ from a frame-by-frame render")
+            angle += c.orbit_speed
+        log(f"  {tag}: the pipelined loop's {frames} PNG and .npy files equal "
+            "a frame-by-frame render's, byte for byte")
+    # --profile: one warm frame, one profiled frame, then the loop's one.
+    prof_dir = os.path.join(tmp, "profile")
+    before = fused_radiance.launches
+    rc = cli.main(["--scene", paths["demo"][0], "--envmap", paths["demo"][1],
+                   "--width", "1024", "--height", "768", "--bounces", "5",
+                   "--frames", "1", "--out", os.path.join(prof_dir, "f.png"),
+                   "--profile", prof_dir, "--backend", "cuda",
+                   "--device", "cuda"])
+    torch.cuda.synchronize()
+    got = fused_radiance.launches - before
+    with open(os.path.join(prof_dir, "frame_trace.json")) as f:
+        trace = json.load(f)["traceEvents"]
+    on_card = [e for e in trace if e.get("cat") == "kernel"]
+    frame_ev = [e for e in on_card if "rt_frame_kernel" in e.get("name", "")]
+    log(f"  --profile: rc {rc}, frame-kernel launches {got}; {len(trace)} "
+        f"trace events, {len(on_card)} on the card: "
+        f"{sorted({e['name'][:60] for e in on_card})}; frame kernel "
+        f"{[round(e.get('dur', 0) / 1e3, 4) for e in frame_ev]} ms [{card}]")
+    if rc != 0 or got != 3 or not frame_ev:
+        raise AssertionError("--profile: the trace does not name the frame "
+                             "kernel")
     frame_rows = {}  # cell -> kernel ms, bound and the frame's work levels
     for tag, sc, c in (("demo", demo, cfg), ("demo spp 4", demo, cfg_4),
                        ("large", large, cfg_l)):
@@ -1024,6 +1083,10 @@ def main() -> int:
     stall_t = [sum(cuda_ms(torch, lambda v=v: fn(v, 64, sm, x1), reps)
                    for v in STALL_VARIANTS)
                for fn, reps in ((stall_iters, 20), (stall_iters_plain, 1))]
+    sm_clock = bounds.max_sm_clock_hz(dev)
+    log(f"  max SM clock {sm_clock / 1e6:.0f} MHz (nvidia-smi clocks.max.sm):"
+        " the stall bounds' latency floor at 4 cycles per dependent FP32 "
+        "operation")
     log(f"  V={vt}: MT kernel {mt_t['mt_visits'][0]:.4f} ms, plain "
         f"{mt_t['mt_visits'][1]:.1f} ms; Woop kernel "
         f"{mt_t['woop_visits'][0]:.4f} ms, plain {mt_t['woop_visits'][1]:.1f} "
@@ -1034,9 +1097,23 @@ def main() -> int:
         f"ms, plain {stall_t[1]:.1f} ms [{card}]")
     for k in instruments:
         k.launches = 0
-    if mxu_mt_bench.main([]) != 0 or stallbench.main([]) != 0:
-        raise AssertionError("an instrument CLI failed")
+    stall_out = io.StringIO()
+    if mxu_mt_bench.main([]) != 0:
+        raise AssertionError("mxu_mt_bench failed")
+    with contextlib.redirect_stdout(stall_out):
+        rc = stallbench.main([])
     instr_launches = {k.__name__: k.launches for k in instruments}
+    print(stall_out.getvalue(), end="", flush=True)
+    stall_ns = {}
+    for line in stall_out.getvalue().splitlines()[1:]:
+        m = re.fullmatch(r" *(\w+): +([\d.]+) ns/iter  \(bound ([\d.]+) "
+                         r"ns/iter by (\w+)\)", line)
+        if m:
+            stall_ns[m.group(1)] = {"ns_per_iter": float(m.group(2)),
+                                    "bound_ns_per_iter": float(m.group(3)),
+                                    "bound_by": m.group(4)}
+    if rc != 0 or list(stall_ns) != list(STALL_VARIANTS):
+        raise AssertionError(f"stallbench: rc {rc}, lines {stall_ns}")
     per_kernel = mxu_mt_bench.launches_per_kernel(mxu_mt_bench.DEFAULT_REPS)
     want = {"mt_visits": per_kernel, "woop_visits": per_kernel,
             "woop_visits_tc": per_kernel, "woop_visits_tc3": per_kernel,
@@ -1046,8 +1123,8 @@ def main() -> int:
         raise AssertionError(f"CLI launches {instr_launches}, want {want}")
 
     # --- phase 8: the CLI flags on CUDA ---------------------------------
-    log("phase 8: CLI flags (--instances, --accumulate/--resume, --heatmap, "
-        "--serve)")
+    log("phase 8: the modular path; CLI flags (--backend torch, --instances, "
+        "--accumulate/--resume, --heatmap, --serve)")
     def drive(argv, want_launches):
         """Run the CLI with every count set to 0 just before; the counts
         just after must equal ``want_launches`` (kernels not named: 0)."""
@@ -1062,6 +1139,52 @@ def main() -> int:
             raise AssertionError(f"{argv}: rc {rc}, launches {got}, want "
                                  f"{want}")
         return got
+
+    # The modular path: the eager integrator over the closest-hit and env
+    # kernels, one launch of each per bounce level.
+    cfg_m = cfg.replace(width=256, height=192)
+    frame_m = orbit_camera(0.01, cfg_m)
+    modular = make_renderer(cfg_m, "cuda", dev, use_mega=False)
+    for k in counters:
+        k.launches = 0
+    img_m = modular(demo, frame_m)
+    torch.cuda.synchronize()
+    modular_launches = {k.__name__: k.launches for k in counters}
+    levels_m = cfg_m.max_refract_depth + 1
+    if modular_launches != {"fused_radiance": 0, "closest_hit": levels_m,
+                            "env_contribution": levels_m, "mega_round": 0,
+                            "mega_round_queue": 0, "fold_round_sums": 0}:
+        raise AssertionError(f"modular path launches {modular_launches}")
+    if (tuple(img_m.shape) != (192, 256, 3)
+            or not bool(torch.isfinite(img_m).all())):
+        raise AssertionError("modular path: bad image")
+    modular_diff = image_diff(np, img_m, make_renderer(cfg_m, "torch", dev)(
+        demo, frame_m))
+    check_image("modular path 256x192 vs plain (brute force on the card)",
+                modular_diff)
+    check_image("modular path 256x192 vs frame kernel", image_diff(
+        np, img_m, make_renderer(cfg_m, "cuda", dev)(demo, frame_m)))
+    modular_demo = make_renderer(cfg, "cuda", dev, use_mega=False)
+    frame_d = orbit_camera(0.01, cfg)
+    modular_ms = [cuda_ms(torch, lambda: modular_demo(demo, frame_d), 1)
+                  for _ in range(3)]
+    log(f"  modular path: launches {modular_launches}; demo 1024x768 5/2 "
+        f"frame {[round(m, 3) for m in modular_ms]} ms (three single "
+        f"frames, host included) [{card}]")
+    # --backend torch on CUDA: the eager brute force, no kernel launch.
+    torch_png = os.path.join(tmp, "torch", "frame.png")
+    drive(["--scene", paths["demo"][0], "--envmap", paths["demo"][1],
+           "--width", "64", "--height", "48", "--bounces", "5", "--frames",
+           "1", "--backend", "torch", "--out", torch_png, "--device", "cuda"],
+          {})
+    cfg_t = cfg.replace(width=64, height=48)
+    want_t = cli.to_u8(make_renderer(cfg_t, "torch", dev)(
+        demo, orbit_camera(0.01, cfg_t))).cpu().numpy()
+    if not np.array_equal(load_png(torch_png), want_t):
+        raise AssertionError("--backend torch: the PNG differs from the "
+                             "eager render")
+    log("  --backend torch --device cuda at 64x48: no kernel launch, the PNG "
+        "equal to the eager render's")
 
     env_path = paths["demo"][1]
     # --instances: three instances, the third with mask 0 (dropped).
@@ -1191,7 +1314,9 @@ def main() -> int:
            "mt_woop_tc3": bounds.mtbench_bound("woop_tc3", mt_r, vt,
                                                vt_words["woop"]),
            "round_fold": fold_bound,
-           "stall": bounds.stall_bound(64)}
+           "stall": {"bound_ms": sum(bounds.stall_bound(
+               v, 64, sm_clock)["bound_ms"] for v in STALL_VARIANTS),
+                     "bound_by": "operations"}}
     kern = [{"name": "frame", "route": "cuda",
              "source": "refraction_tpu_torch/csrc/frame.cu",
              "replaces": "refraction_tpu/kernels/framekernel.py:106",
@@ -1232,17 +1357,17 @@ def main() -> int:
             {"name": "closest_hit", "route": "cuda",
              "source": "refraction_tpu_torch/csrc/closest_hit.cu",
              "replaces": "refraction_tpu/kernels/intersect_pallas.py:140",
-             "launches": eager_launches["closest_hit"],
+             "launches": modular_launches["closest_hit"],
              "max_abs_err": results["closest_hit"][3],
              "max_rel_t_err": results["closest_hit"][2],
              "ms": results["closest_hit"][0],
              "plain_ms": results["closest_hit"][1],
              "timed": "2^16 rays x 5,120 tris vs the brute force; launches "
-                      "from the eager instanced render of phase 8"},
+                      "from the modular path of phase 8 (256x192)"},
             {"name": "env", "route": "cuda",
              "source": "refraction_tpu_torch/csrc/env.cu",
              "replaces": "refraction_tpu/kernels/envmap_pallas.py:130",
-             "launches": eager_launches["env_contribution"],
+             "launches": modular_launches["env_contribution"],
              "max_abs_err": results["env"][2],
              "ms": results["env"][0], "plain_ms": results["env"][1],
              "timed": "2^16 rays, 1024x2048 map vs the gather; the card's "
@@ -1289,7 +1414,12 @@ def main() -> int:
              "launches": instr_launches["stall_iters"],
              "max_abs_err": stall_err,
              "ms": stall_t[0], "plain_ms": stall_t[1],
-             "timed": "the six variants at n_iter 64, summed"}]
+             "ns_per_iter": stall_ns,
+             "timed": "the six variants at n_iter 64, summed; bound: the "
+                      "sum of their bounds, each the larger of the "
+                      "throughput floor and the chain's latency floor "
+                      "(operations: dependent ones); ns_per_iter: the "
+                      "stallbench CLI at N = 200,000"}]
     for k in kern:
         # No single PyTorch call computes any of these functions (the Woop
         # kernel's 48x8 product alone would be one torch.matmul).
@@ -1300,6 +1430,7 @@ def main() -> int:
                          "work": r["bound"]["work"]}
                    for tag, r in frame_rows.items()}
     print(json.dumps({"kernels": kern, "frame_stream_ms": per_frame,
+                      "modular_ms": modular_ms,
                       "frame_ms_large": large_ms, "frame_cells": frame_cells,
                       "wavefront": wave, "card": card}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@ data sheet's at its 700 W limit: 3.35 TB/s of HBM, 67 TFLOP/s FP32 outside
 the tensor cores (a fused multiply-add counted as two operations; the
 library is built with -fmad=false, so every counted operation is one
 instruction, and the instruction-issue floor is twice the operations
-time).
+time). The stall instrument's bound also has a latency floor
+(`stall_bound`): one block on one SM runs dependent chains, so their
+length times the FP32 latency can exceed both.
 
     python -m refraction_tpu_torch.bounds --scene X.obj --envmap X.hdr \\
         --width 1920 --height 1080 --bounces 4 [--spp 4] [--device cuda]
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 
 from refraction_tpu_torch.camera import orbit_camera
 from refraction_tpu_torch.config import RenderConfig
@@ -61,10 +64,24 @@ WOOP_VISIT_OPS = 48 * 15 + WOOP_EPILOGUE_OPS
 WOOP_TC_PRODUCT_OPS = 48 * 8 * 2
 WOOP_TC_KINDS = ("woop_tc", "woop_tc3")
 # Per carry element and iteration of the six stall variants
-# (csrc/stallbench.cu): vecops 128, tree 4, extract 3, while2 4,
-# loads72 144, subplane 36.
-STALL_ITER_OPS = {"vecops": 128, "tree": 4, "extract": 3, "while2": 4,
+# (csrc/stallbench.cu): vecops 128, tree 4, extract 3, while2 8 (the word
+# 0x2D | (i & 1) has four set bits: four pops, a multiply and an add
+# each), loads72 144, subplane 36.
+STALL_ITER_OPS = {"vecops": 128, "tree": 4, "extract": 3, "while2": 8,
                   "loads72": 144, "subplane": 36}
+# The dependent FP32 operations on one carry element's chain from one
+# iteration to the next, the cross-thread reduction and the int/float
+# conversions not counted (so the floor stays a lower bound): vecops 64
+# multiplies and adds; tree acc + i, the word's scaling, the add; extract
+# acc + i and the add; while2 four pops of a multiply and an add; loads72
+# the 72 adds (the loads' scaling is off the chain); subplane acc * 0.001,
+# + i, the compare, the word's scaling, the add.
+STALL_CHAIN_OPS = {"vecops": 128, "tree": 3, "extract": 2, "while2": 8,
+                   "loads72": 72, "subplane": 5}
+# Cycles from one dependent FP32 add or multiply to the next on Hopper:
+# 4, as measured by Luo et al., "Benchmarking and Dissecting the Nvidia
+# Hopper GPU Architecture" (2024). The vecops reading tests the figure.
+FP32_LATENCY_CYCLES = 4
 STATE_ROW_BYTES = 8 * 4  # one lane of the round kernel's (8, W) state
 QUEUE_LANE_BYTES = STATE_ROW_BYTES + 4  # a queued lane: state and slot id
 RADIANCE_BYTES = 3 * 4  # one lane's miss radiance
@@ -206,11 +223,37 @@ def mtbench_bound(kind: str, r: int, v: int, table_words: int) -> dict:
     return bound(ops, nbytes)
 
 
-def stall_bound(n_iter: int, elems: int = 1024) -> dict:
-    """Bound of the six stall launches at n_iter iterations: the carry and
-    the 1,024-word table in, the carry out, per variant."""
-    ops = sum(STALL_ITER_OPS.values()) * elems * n_iter
-    return bound(ops, len(STALL_ITER_OPS) * 4 * (3 * elems))
+def stall_bound(variant: str, n_iter: int, clock_hz: float,
+                elems: int = 1024) -> dict:
+    """Bound of one stall launch of ``variant`` at n_iter iterations: the
+    larger of the throughput floor (`bound`: the carry and the 1,024-word
+    table in, the carry out; the variant's operations over the whole
+    card's FP32 rate) and the latency floor ``latency_ms``: n_iter times
+    the variant's dependent chain (STALL_CHAIN_OPS) times the FP32
+    latency in cycles, over ``clock_hz``, the card's maximum SM clock
+    (`max_sm_clock_hz`). Every element's chain runs in turn through the
+    iterations, and no two iterations of a chain overlap, so no schedule
+    beats it. ``bound_by`` is ``latency`` where that floor wins."""
+    out = bound(STALL_ITER_OPS[variant] * elems * n_iter, 4 * 3 * elems)
+    lat_ms = (n_iter * STALL_CHAIN_OPS[variant] * FP32_LATENCY_CYCLES
+              / clock_hz * 1e3)
+    out["latency_ms"] = lat_ms
+    if lat_ms > out["bound_ms"]:
+        out.update(bound_ms=lat_ms, bound_by="latency")
+    return out
+
+
+def max_sm_clock_hz(device) -> float:
+    """The card's maximum SM clock in Hz, as ``nvidia-smi
+    --query-gpu=clocks.max.sm`` reports it (e.g. ``1980 MHz``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    line = out.strip().splitlines()[device.index or 0]
+    value, unit = line.split()
+    if unit != "MHz":
+        raise ValueError(f"clocks.max.sm: want MHz, got {line!r}")
+    return float(value) * 1e6
 
 
 def main(argv=None) -> int:

@@ -21,8 +21,8 @@ module (tests/test_torch_hostcode.py holds them equal); without
 ``RRT_ASSET_DIR`` the assets are looked up in the working directory. ``backend``,
 ``cluster_size`` and ``num_devices`` are kept so that a configuration
 reads the same in both packages; the port renders on the device its
-callers name. The staged ``baseline_config`` presets are not copied: the
-port has no ``--baseline`` yet.
+callers name. ``baseline_config`` copies the five staged BASELINE.json
+presets (``--baseline N``).
 """
 
 from __future__ import annotations
@@ -82,8 +82,10 @@ class RenderConfig:
     scene_path: str = os.path.join(DEFAULT_ASSET_DIR, "shell.obj")
     envmap_path: str = os.path.join(DEFAULT_ASSET_DIR, "envmap.png")
 
-    # The JAX package's backend name ('auto', 'xla', 'pallas'); the port
-    # picks its path by function (render.make_renderer), not by this field.
+    # The JAX package's backend name ('auto', 'xla', 'pallas'), kept so the
+    # two configs stay equal. The port's renderer never reads it: it reads
+    # its own argument (render.make_renderer's ``backend``, the CLI's
+    # ``--backend`` with the port's names 'auto', 'torch', 'cuda').
     backend: str = "auto"
 
     # Triangles per spatially sorted cluster; a multiple of 8. None =
@@ -118,3 +120,24 @@ class RenderConfig:
 def reference_config() -> RenderConfig:
     """The exact demo configuration of the reference."""
     return RenderConfig()
+
+
+def baseline_config(n: int) -> RenderConfig:
+    """The staged BASELINE.json configs (1-5)."""
+    a = DEFAULT_ASSET_DIR
+    if n == 1:
+        return RenderConfig(width=512, height=512, max_refract_depth=1,
+                            scene_path=os.path.join(a, "cube.obj"))
+    if n == 2:
+        return RenderConfig(width=512, height=512, max_refract_depth=2,
+                            scene_path=os.path.join(a, "sphere.obj"))
+    if n == 3:
+        return RenderConfig(width=1024, height=1024, max_refract_depth=4,
+                            scene_path=os.path.join(a, "monkey.obj"))
+    if n == 4:
+        return RenderConfig(width=1920, height=1080,
+                            scene_path=os.path.join(a, "shell.obj"))
+    if n == 5:
+        return RenderConfig(width=1920, height=1080, spp=4,
+                            scene_path=os.path.join(a, "ott.obj"))
+    raise ValueError(f"unknown baseline config {n}")

@@ -25,12 +25,19 @@ prints one JSON line for the package it imports:
   loop frame. The PNG write is timed apart (median of 5 writes of the last
   frame), since the CLI's per-frame write would leave the card idle for
   tens of ms between frames;
+- ``cli``: the CLI's own loop as the imported package runs it
+  (``run.main`` over 34 frames of the orbit, one PNG per frame): the
+  median, p10 and p90 of the 30 host-clock gaps between consecutive
+  per-frame log lines after the first 3: the loop's frame period,
+  ``with_png`` as the CLI runs and ``without_png`` with ``run.write_png``
+  replaced by a no-op;
 - the card line (nvidia-smi name and power limit).
 
 It uses only the package's long-standing entry points (``scene.load_scene``,
 ``scene.scene_from_jax``, ``kernels.framekernel.build_scalars`` /
 ``fused_radiance``, ``camera.generate_rays``,
-``integrator.render_pixels_mega``, ``run.to_u8`` / ``write_png``) and the
+``integrator.render_pixels_mega``, ``run.to_u8`` / ``write_png`` /
+``main`` and its per-frame log line) and the
 measurement helpers of ``timing.py``, so the same two files, copied beside
 another checkout of the package, time that checkout's kernels:
 comparisons run both in one call, in turns. ``--device cuda`` only:
@@ -41,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import statistics
 import tempfile
@@ -49,6 +57,7 @@ import time
 import numpy as np
 import torch
 
+from refraction_tpu_torch import run
 from refraction_tpu_torch.camera import generate_rays, orbit_camera
 from refraction_tpu_torch.integrator import render_pixels_mega
 from refraction_tpu_torch.kernels.framekernel import build_scalars, fused_radiance
@@ -59,6 +68,8 @@ from refraction_tpu_torch.timing import card_line, device_ms, require_device
 
 ROUNDS, LAUNCHES = 5, 20
 WARM_FRAMES, FRAMES = 3, 30
+SHAPE_FLAGS = ("--scene", "--envmap", "--width", "--height", "--bounces",
+               "--spp")
 
 
 def _pct(xs, q):
@@ -122,6 +133,40 @@ def loop_breakdown(scene, cfg, device, png_dir: str) -> dict:
     return out
 
 
+def cli_loop(args, png_dir: str, write: bool) -> dict:
+    """Frame period of ``run.main`` at the shape of ``args`` over
+    WARM_FRAMES + FRAMES frames (one PNG each; with ``write`` False,
+    ``run.write_png`` is a no-op): median, p10 and p90 of the gaps between
+    consecutive per-frame log lines after the first WARM_FRAMES, in ms."""
+    stamps = []
+
+    class Stamp(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith('{"frame"'):
+                stamps.append(record.created)
+
+    argv = ["--frames", str(WARM_FRAMES + FRAMES + 1), "--out",
+            os.path.join(png_dir, "frame.png"), "--device", "cuda"]
+    for flag in SHAPE_FLAGS:
+        value = getattr(args, flag[2:])
+        if value is not None:
+            argv += [flag, str(value)]
+    handler, real_write = Stamp(), run.write_png
+    logger = logging.getLogger("refraction_tpu")
+    logger.addHandler(handler)
+    if not write:
+        run.write_png = lambda path, img: None
+    try:
+        if run.main(argv) != 0:
+            raise RuntimeError(f"run.main({argv}) failed")
+    finally:
+        run.write_png = real_write
+        logger.removeHandler(handler)
+    gaps = (np.diff(np.asarray(stamps)) * 1e3)[WARM_FRAMES:]
+    return {"median": float(np.median(gaps)), "p10": _pct(gaps, 10),
+            "p90": _pct(gaps, 90), "frames": len(stamps)}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         description=__doc__,
@@ -146,6 +191,8 @@ def main(argv=None) -> int:
         for _ in range(LAUNCHES)) for _ in range(ROUNDS)]
     with tempfile.TemporaryDirectory() as tmp:
         loop = loop_breakdown(scene, cfg, device, tmp)
+        cli = {"with_png": cli_loop(args, tmp, True),
+               "without_png": cli_loop(args, tmp, False)}
     print(json.dumps({"label": args.label,
                       "shape": [cfg.width, cfg.height, cfg.max_refract_depth,
                                 cfg.spp],
@@ -155,7 +202,8 @@ def main(argv=None) -> int:
                       "wavefront_device_ms": wave_dev,
                       "wavefront_device_ms_median": statistics.median(
                           wave_dev),
-                      "loop": loop, "card": card_line(device)}), flush=True)
+                      "loop": loop, "cli": cli,
+                      "card": card_line(device)}), flush=True)
     return 0
 
 

@@ -73,6 +73,8 @@ SIGNATURES = {
     "rt_woop_visits_tc": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     # variant, n_iter, sm, x, out, stream
     "rt_stall": [_I, _I, _P, _P, _P, _P],
+    # ept, variant, n_iter, sm, x, out, stream
+    "rt_stall_form": [_I, _I, _I, _P, _P, _P, _P],
 }
 
 

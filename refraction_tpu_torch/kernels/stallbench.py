@@ -16,9 +16,10 @@ float32 table ``sm``:
   OR-ed into bit ``b % 31``, the OR over all elements, then
   ``acc + float(word) * 1e-9``.
 
-On CUDA one block of 1,024 threads holds the carry; on CPU tensors the
-wrapper takes `stall_iters_plain`, the same loop in the kernel's float32
-order, equal to it bit for bit.
+On CUDA one block of 256 threads holds the carry, four elements a thread
+(csrc/stallbench.cu; the block OR takes one barrier an iteration); on CPU
+tensors the wrapper takes `stall_iters_plain`, the same loop in the
+kernel's float32 order, equal to it bit for bit.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ _MUL = float(np.float32(1.0000001))
 _MILLI = float(np.float32(0.001))
 _NANO = np.float32(1e-9)
 _BITS = 31  # the words use bits 0..30
+# Block shapes of rt_stall_form: name -> elements per thread.
+FORMS = {"1024x1": 1, "256x4": 4}
 
 
 def _check(variant: str, n_iter: int, sm: torch.Tensor, x: torch.Tensor):
@@ -129,7 +132,7 @@ def stall_iters(variant: str, n_iter: int, sm: torch.Tensor,
                 x: torch.Tensor) -> torch.Tensor:
     """The (8, 128) carry after ``n_iter`` iterations of ``variant`` (see
     the module doc), starting from ``x``. On CUDA: one launch of one
-    1,024-thread block, no host sync."""
+    256-thread block, no host sync."""
     _check(variant, n_iter, sm, x)
     if x.device.type == "cpu":
         return stall_iters_plain(variant, n_iter, sm, x)
@@ -145,3 +148,20 @@ def stall_iters(variant: str, n_iter: int, sm: torch.Tensor,
 
 
 stall_iters.launches = 0
+
+
+def stall_form(ept: int, variant: str, n_iter: int, sm: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """The instrument: one launch of `stall_iters`' function in the block
+    shape of ``ept`` elements per thread (a value of ``FORMS``; rt_stall
+    runs one of the two), CUDA tensors only. No launch is counted: no
+    render path runs it."""
+    _check(variant, n_iter, sm, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"stall_form: CUDA tensors only, got {x.device}")
+    out = torch.empty_like(x)
+    check(library().rt_stall_form(
+        ept, VARIANTS.index(variant), n_iter, sm.data_ptr(), x.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream),
+        "rt_stall_form")
+    return out

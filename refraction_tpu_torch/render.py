@@ -2,13 +2,25 @@
 
 Port of `refraction_tpu.render` (make_renderer, render_frame,
 rays_per_frame, sample_offsets, render_heatmap, heatmap_to_rgb,
-Accumulator). Two backends:
+Accumulator). Three paths:
 
 - ``"cuda"``: the fused path, one frame-kernel launch per frame
   (kernels/framekernel.fused_radiance). On CPU tensors its wrapper takes
   the plain version.
+- ``"cuda"`` with ``use_mega=False``: the modular path, the eager
+  integrator over the closest-hit and env kernels (`get_backend("cuda")`:
+  one launch of each per bounce level and sample); on CPU tensors their
+  plain versions.
 - ``"torch"``: the eager wavefront integrator over the brute-force
   backend, on any device.
+
+``"auto"`` is ``"cuda"`` on a CUDA device and ``"torch"`` on the CPU, as
+the JAX package's ``auto`` picks by platform. It picks by the device the
+caller names; it is no fallback for a missing card. The JAX renderer's
+TPU machinery is not ported: the image tiling (``tile_order``, the
+padding to whole tiles) and the VMEM budget that sends a large envmap to
+the wavefront (``_mega_ok``). A pixel's radiance does not depend on the
+order of the rays, so neither changes an image.
 
 Only the scalar vector (camera, limits, jitter) crosses to the device per
 frame; the result is the (H, W, 3) float32 image on the scene's device.
@@ -54,25 +66,43 @@ def sample_offsets(spp: int) -> np.ndarray:
     return off
 
 
+def resolve_backend(backend: str, device: torch.device | str) -> str:
+    """``"auto"`` -> ``"cuda"`` on a CUDA device, ``"torch"`` otherwise;
+    ``"cuda"`` and ``"torch"`` as given; anything else raises."""
+    if backend == "auto":
+        return "cuda" if torch.device(device).type == "cuda" else "torch"
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"unknown backend: {backend!r} (use 'auto', 'cuda' "
+                         "or 'torch')")
+    return backend
+
+
 def make_renderer(cfg: RenderConfig, backend: str = "cuda",
                   device: torch.device | str = "cuda",
+                  use_mega: bool | None = None,
                   ) -> Callable[[TorchScene, CameraFrame], torch.Tensor]:
     """Build a (scene, frame) -> (H, W, 3) renderer for ``cfg``.
 
-    ``backend`` is ``"cuda"`` (fused frame kernel) or ``"torch"`` (eager
-    integrator); ``device`` is where the scalars and rays are made and must
-    hold the scene.
+    ``backend`` is ``"cuda"``, ``"torch"`` or ``"auto"`` (see the module
+    doc); ``cfg.backend``, the JAX package's name, is not read.
+    ``use_mega`` picks the ``"cuda"`` backend's path: None or True the
+    fused frame kernel, False the modular kernels under the eager
+    integrator; the ``"torch"`` backend has only its eager path and
+    refuses True. ``device`` is where the scalars and rays are made and
+    must hold the scene.
     """
     device = torch.device(device)
+    backend = resolve_backend(backend, device)
     offsets = sample_offsets(cfg.spp)
-    if backend == "cuda":
+    if backend == "cuda" and use_mega is not False:
         def render(scene: TorchScene, frame: CameraFrame) -> torch.Tensor:
             return fused_radiance(
                 scene, build_scalars(frame, cfg, offsets, device), cfg)
         return render
-    if backend != "torch":
-        raise ValueError(f"unknown backend: {backend!r} (use 'cuda' or 'torch')")
-    be = get_backend("torch")
+    if backend == "torch" and use_mega:
+        raise ValueError("use_mega=True: the fused frame kernel is the "
+                         "'cuda' backend's path")
+    be = get_backend(backend)
 
     def render_eager(scene: TorchScene, frame: CameraFrame) -> torch.Tensor:
         return render_image(scene, frame, cfg, offsets, device, be.intersect,

@@ -92,3 +92,51 @@ def test_check_envmap_wants_the_float32_map():
     assert torch.equal(env_contribution(ts, d, w),
                        env_contribution_plain(ts, d, w))
     assert env_contribution.launches == before
+
+
+@pytest.mark.parametrize("variant,chain", [
+    ("vecops", 128), ("tree", 3), ("extract", 2), ("while2", 8),
+    ("loads72", 72), ("subplane", 5)])
+def test_stall_bound_latency_floor_on_a_fixed_clock(variant, chain):
+    """At 1.98 GHz and N = 200,000 every variant's dependent chain outlasts
+    its throughput floor: the bound is n_iter x chain x 4 cycles / clock,
+    by latency (vecops: 128 x 4 / 1.98 GHz ~ 258.6 ns/iter, ~51.7 ms)."""
+    clock, n = 1.98e9, 200_000
+    b = bounds.stall_bound(variant, n, clock)
+    assert bounds.STALL_CHAIN_OPS[variant] == chain
+    want = n * chain * bounds.FP32_LATENCY_CYCLES / clock * 1e3
+    assert b["latency_ms"] == pytest.approx(want, rel=1e-12)
+    assert b["bound_by"] == "latency" and b["bound_ms"] == b["latency_ms"]
+    assert b["ops_ms"] < b["latency_ms"]
+    assert b["ops"] == bounds.STALL_ITER_OPS[variant] * 1024 * n
+    assert b["bytes"] == 3 * 4 * 1024
+    if variant == "vecops":
+        assert b["bound_ms"] == pytest.approx(51.7, rel=1e-3)
+        assert b["bound_ms"] * 1e6 / n == pytest.approx(258.6, rel=1e-3)
+
+
+def test_stall_bound_keeps_the_larger_floor():
+    """On a clock fast enough that the chain's latency is below the
+    card's throughput floor, the throughput floor stays, by operations."""
+    b = bounds.stall_bound("vecops", 64, 1e15)
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == b["ops_ms"] > b["latency_ms"]
+
+
+def test_max_sm_clock_reads_nvidia_smi(monkeypatch):
+    class Done:
+        stdout = "1980 MHz\n1755 MHz\n"
+
+    seen = []
+
+    def fake_run(cmd, **kw):
+        seen.append(cmd)
+        return Done()
+
+    monkeypatch.setattr(bounds.subprocess, "run", fake_run)
+    assert bounds.max_sm_clock_hz(torch.device("cuda", 0)) == 1.98e9
+    assert bounds.max_sm_clock_hz(torch.device("cuda", 1)) == 1.755e9
+    assert seen[0][1] == "--query-gpu=clocks.max.sm"
+    Done.stdout = "[N/A]\n"
+    with pytest.raises(ValueError):
+        bounds.max_sm_clock_hz(torch.device("cuda", 0))

@@ -66,6 +66,7 @@ from refraction_tpu_torch.kernels.mtbench import (
 )
 from refraction_tpu_torch.kernels.stallbench import (
     VARIANTS,
+    stall_form,
     stall_iters,
     mixed_carry,
     stall_iters_plain,
@@ -512,3 +513,21 @@ def test_mtbench_bound_of_the_tensor_core_forms():
         assert b["bytes"] == exact["bytes"] and b["bound_ms"] < exact["bound_ms"]
     with pytest.raises(KeyError):
         bounds.mtbench_bound("mxu", r, v, words)
+
+
+def test_stallbench_bound_note_and_variants_flag(capsys):
+    """On CUDA each line ends with the variant's bound at N; the note on a
+    fixed clock. --variants times the CUDA block shapes only."""
+    assert stallbench.bound_note("vecops", 200_000, 1.98e9) == (
+        "(bound 258.6 ns/iter by latency)")
+    assert stallbench.bound_note("loads72", 200_000, 1.98e9) == (
+        "(bound 145.5 ns/iter by latency)")
+    assert stallbench.FORMS == {"1024x1": 1, "256x4": 4}
+    sm, x = torch.arange(1024.0), torch.ones(8, 128)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        stall_form(4, "tree", 4, sm, x)
+    with pytest.raises(ValueError, match="variant"):
+        stall_form(4, "roll", 4, sm, x)
+    with pytest.raises(SystemExit):
+        stallbench.main(["6", "--device", "cpu", "--variants"])
+    assert "--variants" in capsys.readouterr().err

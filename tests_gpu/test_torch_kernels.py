@@ -582,3 +582,50 @@ def test_env_variants_equal_the_env_kernel(cuda):
         env_variant(VARIANTS["rays4"], scene, env4, d[1:], w[1:])
     with pytest.raises(RuntimeError, match="rt_env_variant"):
         env_variant(7, scene, env4, d, w)
+
+
+@pytest.mark.parametrize("carry", ["ones", "mixed"])
+@pytest.mark.parametrize("n_iter", [64, 70])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_stall_block_shapes_equal_plain(cuda, variant, n_iter, carry):
+    """Both block shapes of rt_stall_form (1,024 x 1 and 256 x 4; the
+    kernel is one, the other the form measured and not kept) equal the
+    plain version bit for bit; an unknown shape is refused."""
+    from refraction_tpu_torch.kernels.stallbench import FORMS, stall_form
+
+    sm = torch.arange(1024, dtype=torch.float32, device=cuda)
+    x = (torch.ones(8, 128, dtype=torch.float32, device=cuda)
+         if carry == "ones" else torch.from_numpy(mixed_carry(0)).to(cuda))
+    ref = stall_iters_plain(variant, n_iter, sm, x)
+    for name, ept in FORMS.items():
+        assert torch.equal(stall_form(ept, variant, n_iter, sm, x), ref), name
+    with pytest.raises(RuntimeError, match="rt_stall_form"):
+        stall_form(2, variant, n_iter, sm, x)
+
+
+@pytest.mark.parametrize("spp", [1, 4])
+@pytest.mark.parametrize("name", ["cube", "sphere"])
+def test_modular_path_matches_plain_and_fused(cuda, name, spp):
+    """make_renderer(..., use_mega=False) on the card: one closest-hit and
+    one env launch per bounce level and sample, the image against the
+    eager brute force on the card (its plain version) and against the
+    fused frame kernel."""
+    from refraction_tpu_torch.render import make_renderer
+
+    scene = scene_from_jax(_scenes()[name], cuda)
+    cfg = RenderConfig(width=64, height=48, spp=spp)
+    frame = orbit_camera(0.85, cfg)
+    before = (closest_hit.launches, env_contribution.launches,
+              fused_radiance.launches)
+    img = make_renderer(cfg, "cuda", cuda, use_mega=False)(scene, frame)
+    torch.cuda.synchronize()
+    levels = (cfg.max_refract_depth + 1) * spp
+    assert (closest_hit.launches - before[0], env_contribution.launches
+            - before[1], fused_radiance.launches - before[2]) == (
+                levels, levels, 0)
+    for ref in (make_renderer(cfg, "torch", cuda)(scene, frame),
+                make_renderer(cfg, "cuda", cuda)(scene, frame)):
+        ok, why = _img_ok(img, ref)
+        assert ok, why
+    auto = make_renderer(cfg, "auto", cuda)(scene, frame)
+    assert torch.equal(auto, make_renderer(cfg, "cuda", cuda)(scene, frame))

@@ -87,10 +87,28 @@ Phases (any failure raises; nothing is caught):
      round-kernel launch per bounce round; counts sum to count_live_rays
      and equal the eager integrator's pixel_rays on every 64th pixel) and
      ``--serve 0 --frames 3`` in a thread (one GET of /frame over
-     127.0.0.1 returns a PNG of the frame's size).
+     127.0.0.1 returns a PNG of the frame's size);
+  9. the sharded renderers (parallel/sharding.py) with the one card's
+     device repeated in the device list, so every shard's launch, gather
+     and reassembly runs on the card: the fused pixel-DP over 2, 3 and 4
+     shards at the demo and large cells, each image bit-equal to the
+     single frame-kernel launch's with exactly k ``frame_tiles`` launches
+     and no other (counts set to 0 just before, read just after), its
+     frame time (back to back, and the card's) beside the single
+     launch's, and one-tile launches (every tile of the demo; two of the
+     large frame); ``frame_tiles`` vs its plain version at 256x192 on
+     shards 0 and 1 of 3 and on the 4 shards of the demo frame (the
+     kernels line's error); the wavefront pixel-DP (2 shards) bit-equal to one shard;
+     sample-SP on a 2x2 grid at spp 4 (RMSE < 1e-6); tri-TP over 2 shards
+     (winners equal to the brute force on 2^14 rays); the LBVH oracle
+     (build times at 1,280 and 81,920 tris, 2^16 rays against the brute
+     force, a 256x192 frame through its backend against the frame
+     kernel); ``--devices 2`` on one card exits 2 naming it, ``--devices
+     1`` renders with one frame-kernel launch.
 
 The line before the last is a JSON object with each kernel's launches in
-its main-path phase (5 for the frame kernel, 6 for the round kernel in
+its main-path phase (5 for the frame kernel, 9 for its pixel-DP entry
+``frame_tiles``, 6 for the round kernel in
 both layouts: ``round_queue`` and ``round_fold`` on the wavefront path,
 ``round`` on the static-layout wavefronts held against it; the modular
 path of 8 for the closest-hit and env kernels, the CLIs of 7 for the
@@ -253,7 +271,8 @@ def main() -> int:
     from refraction_tpu_torch.kernels.envmap import (
         env_contribution, env_contribution_plain)
     from refraction_tpu_torch.kernels.framekernel import (
-        build_scalars, fused_radiance, fused_radiance_plain, walk_of)
+        build_scalars, frame_tiles, frame_tiles_plain, fused_radiance,
+        fused_radiance_plain, tile_grid, walk_of)
     from refraction_tpu_torch.kernels.intersect import (
         closest_hit, closest_hit_plain)
     from refraction_tpu_torch.kernels.megakernel import (
@@ -262,8 +281,15 @@ def main() -> int:
         mega_round_queue_plain, slot_order_sum)
     from refraction_tpu_torch.camera import generate_rays
     from refraction_tpu_torch.integrator import (
-        render_pixels, render_pixels_mega, static_wavefront, static_widths)
-    from refraction_tpu_torch.ops.backends import get_backend
+        render_image, render_pixels, render_pixels_mega, static_wavefront,
+        static_widths)
+    from refraction_tpu_torch.ops.backends import get_backend, torch_intersect
+    from refraction_tpu_torch.bvh.lbvh import (
+        lbvh_from_scene, lbvh_intersect, make_lbvh_backend)
+    from refraction_tpu_torch.parallel.sharding import (
+        assemble_tiles, make_fused_sharded_renderer,
+        make_sample_sharded_renderer, make_sharded_renderer,
+        make_trisharded_intersect)
     from refraction_tpu_torch.render import (
         count_live_rays, frame_traversal_work, sample_offsets)
     from refraction_tpu_torch import profile_rounds
@@ -282,7 +308,7 @@ def main() -> int:
         stall_iters_plain)
     from refraction_tpu_torch.render import make_renderer, render_heatmap
     from refraction_tpu_torch.io.png import load_png
-    from refraction_tpu_torch.timing import card_ms, device_ms
+    from refraction_tpu_torch.timing import card_ms, device_ms, time_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1297,6 +1323,241 @@ def main() -> int:
         raise AssertionError(f"served frame shape {served.shape}")
     log(f"  --serve: GET /frame over 127.0.0.1 returned a PNG of shape "
         f"{served.shape}")
+
+    # --- phase 9: multi-device rendering on one card; the LBVH oracle ----
+    log("phase 9: sharded renderers on [cuda:0] * k (pixel-DP, sample-SP, "
+        "tri-TP); the LBVH oracle; --devices")
+    tile_counters = counters + (frame_tiles,)
+
+    def zero_counts():
+        for k in tile_counters:
+            k.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {k.__name__: k.launches for k in tile_counters}
+
+    def only(**want):
+        return {k.__name__: want.get(k.__name__, 0) for k in tile_counters}
+
+    pixel_dp = {}  # cell -> {"single": ..., k: ...}
+    dp_launches = 0
+    for tag, sc, c in (("demo", demo, cfg), ("large", large, cfg_l)):
+        frame = orbit_camera(0.01, c)
+        scal = build_scalars(frame, c, sample_offsets(1), dev)
+        single = fused_radiance(sc, scal, c)
+        n_tiles = tile_grid(c)[1]
+        cell = {"single": {
+            "ms": cuda_ms(torch, lambda: fused_radiance(sc, scal, c), 10),
+            "card_ms": card_ms(lambda: fused_radiance(sc, scal, c), 10, dev),
+            "tiles": n_tiles, "blocks": n_tiles * 8}}
+        for k in (2, 3, 4):
+            render = make_fused_sharded_renderer(c, [dev] * k)
+            zero_counts()
+            img = render(sc, frame)
+            got = read_counts()
+            if got != only(frame_tiles=k) or not torch.equal(img, single):
+                raise AssertionError(
+                    f"{tag} pixel-DP over {k} shards: launches {got}, "
+                    f"bit-equal {torch.equal(img, single)}")
+            dp_launches += got["frame_tiles"]
+            n_local = -(-n_tiles // k)
+
+            parts = [frame_tiles(sc, scal, c, k, b, n_local, n_tiles)
+                     for b in range(k)]
+
+            def shards(k=k, n_local=n_local):
+                for b in range(k):
+                    frame_tiles(sc, scal, c, k, b, n_local, n_tiles)
+
+            # The card's times: the k launches, and the reassembly (both
+            # behind a spin kernel); the frame back to back, host included
+            # (its scalar upload from pageable memory waits for the card,
+            # so a spin kernel cannot hide the host there).
+            cell[k] = {"ms": cuda_ms(torch, lambda: render(sc, frame), 10),
+                       "tiles_card_ms": card_ms(shards, 10, dev),
+                       "assemble_card_ms": card_ms(
+                           lambda: assemble_tiles(parts, c, dev), 10, dev),
+                       "n_local": n_local, "blocks_per_launch": n_local * 8}
+            r = cell[k]
+            log(f"  {tag} {c.width}x{c.height} pixel-DP over {k} shards: "
+                f"bit-equal to the single launch, frame_tiles launches {k}, "
+                f"{n_local} tiles ({n_local * 8} blocks) a launch; card: the "
+                f"{k} launches {r['tiles_card_ms']:.4f} ms + reassembly "
+                f"{r['assemble_card_ms']:.4f} ms vs the single launch "
+                f"{cell['single']['card_ms']:.4f} ms; frame back to back "
+                f"(host included) {r['ms']:.4f} ms vs {cell['single']['ms']:.4f}"
+                f" ms [{card}]")
+        # One-tile launches: a launch cannot end before its slowest block.
+        tiles_x = tile_grid(c)[0]
+        ids = (range(n_tiles) if tag == "demo" else
+               (0, (n_tiles // tiles_x // 2) * tiles_x + tiles_x // 2))
+
+        def one_tile(t):
+            return device_ms(lambda: frame_tiles(sc, scal, c, n_tiles, t, 1,
+                                                 n_tiles), dev)
+
+        one = {t: one_tile(t) for t in ids}
+        # One window can be noisy: the 8 slowest tiles take the best of 5.
+        for t in sorted(one, key=one.get)[-8:]:
+            one[t] = min(one[t], *(one_tile(t) for _ in range(4)))
+        slow = max(one, key=one.get)
+        cell["one_tile_ms"] = {"max": one[slow], "max_tile": slow,
+                               "median": float(np.median(list(one.values()))),
+                               "tile_0": one[0]}
+        log(f"  {tag}: one-tile launches over {len(one)} tiles (the 8 "
+            f"slowest best of 5): slowest "
+            f"{one[slow]:.4f} ms (tile {slow}), median "
+            f"{cell['one_tile_ms']['median']:.4f} ms, tile 0 {one[0]:.4f} ms "
+            f"(the card's time) [{card}]")
+        pixel_dp[tag] = cell
+
+    # frame_tiles against its plain version: shards 0 and 1 of 3 at 256x192,
+    # then the 4 shards of the demo frame, which the kernels line reports
+    # (its error and its times come from the same inputs).
+    cfg_s = cfg.replace(width=256, height=192)
+    frame_s = orbit_camera(0.01, cfg_s)
+    scal_s = build_scalars(frame_s, cfg_s, sample_offsets(1), dev)
+    n_ts = tile_grid(cfg_s)[1]
+    for b in (0, 1):
+        check_image(f"frame_tiles shard {b} of 3, 256x192, vs plain",
+                    image_diff(np, frame_tiles(demo, scal_s, cfg_s, 3, b, 16,
+                                               n_ts),
+                               frame_tiles_plain(demo, scal_s, cfg_s, 3, b, 16,
+                                                 n_ts)))
+    n_td = tile_grid(cfg)[1]
+    n_ld = -(-n_td // 4)
+    scal_d = build_scalars(orbit_camera(0.01, cfg), cfg, sample_offsets(1),
+                           dev)
+    plain_d = []
+    tiles_plain_ms = time_ms(lambda: plain_d.extend(
+        frame_tiles_plain(demo, scal_d, cfg, 4, b, n_ld, n_td)
+        for b in range(4)), dev)
+    tiles_err = 0.0
+    for b, want in enumerate(plain_d):
+        diff = image_diff(np, frame_tiles(demo, scal_d, cfg, 4, b, n_ld, n_td),
+                          want)
+        check_image(f"frame_tiles shard {b} of 4, demo 1024x768, vs plain",
+                    diff)
+        tiles_err = max(tiles_err, diff["max_abs_err"])
+    log(f"  frame_tiles plain, the 4 shards of the demo frame: "
+        f"{tiles_plain_ms:.1f} ms; max abs err of the kernel's shards "
+        f"{tiles_err:.3e}")
+
+    # Wavefront pixel-DP on the "cuda" backend, 2 shards, at the demo.
+    frame_d = orbit_camera(0.01, cfg)
+    o, d = generate_rays(frame_d, cfg.width, cfg.height, dev)
+    one = render_pixels_mega(demo, o, d, cfg).reshape(cfg.height, cfg.width,
+                                                      3)
+    wave2 = make_sharded_renderer(cfg, [dev] * 2, "cuda")
+    zero_counts()
+    two = wave2(demo, frame_d)
+    got = read_counts()
+    rounds = cfg.max_refract_depth + 1
+    folds = sum(wd > 512 * 768 for wd in static_widths(cfg, 512 * 768))
+    if got != only(mega_round_queue=2 * rounds, fold_round_sums=2 * folds):
+        raise AssertionError(f"wavefront pixel-DP launches {got}")
+    d_w = (two - one).abs()
+    wave1 = make_sharded_renderer(cfg, [dev], "cuda")
+    log(f"  demo wavefront pixel-DP over 2 shards: launches {got}; bit-equal "
+        f"pixels {float((d_w == 0).all(dim=-1).double().mean()):.6f}; back "
+        f"to back, host included: 2 shards "
+        f"{cuda_ms(torch, lambda: wave2(demo, frame_d), 10):.4f} ms, 1 shard "
+        f"{cuda_ms(torch, lambda: wave1(demo, frame_d), 10):.4f} ms (both "
+        f"make the frame's rays), render_pixels_mega on given rays "
+        f"{cuda_ms(torch, lambda: render_pixels_mega(demo, o, d, cfg), 10):.4f}"
+        f" ms [{card}]")
+    if not torch.equal(two, one):
+        raise AssertionError("wavefront pixel-DP differs from one shard")
+
+    # Sample-SP: a 2x2 (samples, pixels) grid at spp 4 against one device.
+    cfg_4 = cfg.replace(spp=4)
+    single4 = make_sharded_renderer(cfg_4, [dev], "cuda")(demo, frame_d)
+    ssp = make_sample_sharded_renderer(cfg_4, [[dev, dev], [dev, dev]],
+                                       "cuda")(demo, frame_d)
+    ssp_rmse = float(torch.sqrt(torch.mean((ssp - single4).double() ** 2)))
+    log(f"  demo sample-SP 2x2 at spp 4 vs one device: rmse {ssp_rmse:.3e} "
+        f"(bar 1e-6), bit-equal {torch.equal(ssp, single4)}")
+    if ssp_rmse >= 1e-6:
+        raise AssertionError("sample-SP disagrees")
+
+    # Tri-TP: 2 shards of the demo scene's triangles, 2^14 rays.
+    rng_t = np.random.default_rng(14)
+    o_t = torch.from_numpy(rng_t.uniform(-3, 3, (2 ** 14, 3)).astype(
+        np.float32)).to(dev)
+    d_t = torch.from_numpy(rng_t.normal(size=(2 ** 14, 3)).astype(
+        np.float32)).to(dev)
+    d_t = d_t / torch.linalg.norm(d_t, dim=1, keepdim=True)
+    wf_t = torch.from_numpy(rng_t.random(2 ** 14) < 0.5).to(dev)
+    al_t = torch.ones_like(wf_t)
+    ref_t = torch_intersect(demo, o_t, d_t, wf_t, al_t, 1e-4, 100.0)
+    tri_t = make_trisharded_intersect([dev] * 2)(demo, o_t, d_t, wf_t, al_t,
+                                                 1e-4, 100.0)
+    h_t = ref_t[0]
+    same = (torch.equal(tri_t[0], h_t) and torch.equal(tri_t[2][h_t],
+                                                       ref_t[2][h_t])
+            and torch.equal(tri_t[1][h_t], ref_t[1][h_t]))
+    log(f"  tri-TP over 2 shards, 2^14 rays x {demo.num_tris} tris: hits "
+        f"{int(h_t.sum())}, winners and t equal to the brute force {same}")
+    if not same:
+        raise AssertionError("tri-TP disagrees with the brute force")
+
+    # The LBVH oracle: build times, 2^16 rays, a 256x192 frame.
+    lbvh_ms = {}
+    for tag, sc in (("demo", demo), ("large", large)):
+        lbvh_from_scene(sc)
+        lbvh_ms[f"build_{tag}"] = min(time_ms(lambda: lbvh_from_scene(sc), dev)
+                                      for _ in range(3))
+    bvh = lbvh_from_scene(demo)
+    wf_l = torch.from_numpy(np.random.default_rng(16).random(
+        o_np.shape[0]) < 0.5).to(dev)
+    o_l, d_l = torch.from_numpy(o_np).to(dev), torch.from_numpy(d_np).to(dev)
+    ref_l = torch_intersect(demo, o_l, d_l, wf_l, torch.ones_like(wf_l), 1e-4,
+                            100.0)
+    lb = lbvh_intersect(bvh, o_l, d_l, wf_l, 1e-4, 100.0)
+    lbvh_ms["intersect_2^16"] = time_ms(
+        lambda: lbvh_intersect(bvh, o_l, d_l, wf_l, 1e-4, 100.0), dev)
+    h_l = ref_l[0]
+    t_err = float((lb[1] - ref_l[1])[h_l].abs().max())
+    i_agree = float((lb[2] == ref_l[2])[h_l].double().mean())
+    log(f"  LBVH: build {lbvh_ms['build_demo']:.2f} ms at {demo.num_tris} "
+        f"tris, {lbvh_ms['build_large']:.2f} ms at {large.num_tris}; "
+        f"lbvh_intersect 2^16 rays {lbvh_ms['intersect_2^16']:.1f} ms: hits "
+        f"equal {torch.equal(lb[0], h_l)}, t max abs err {t_err:.2e} (bar "
+        f"1e-5), winners equal on {i_agree:.6f} of hits (bar 0.999) [{card}]")
+    if not torch.equal(lb[0], h_l) or t_err > 1e-5 or i_agree < 0.999:
+        raise AssertionError("lbvh_intersect disagrees with the brute force")
+    lbvh_be = make_lbvh_backend(demo)
+    img_l = render_image(demo, frame_s, cfg_s, sample_offsets(1), dev,
+                         lbvh_be, env_contribution_plain)
+    lbvh_ms["frame_256x192"] = time_ms(lambda: render_image(
+        demo, frame_s, cfg_s, sample_offsets(1), dev, lbvh_be,
+        env_contribution_plain), dev)
+    check_image("LBVH backend 256x192 vs frame kernel", image_diff(
+        np, img_l, fused_radiance(demo, scal_s, cfg_s)))
+    log(f"  LBVH backend frame 256x192 5/2: {lbvh_ms['frame_256x192']:.1f} ms "
+        f"[{card}]")
+
+    # --devices: two asked of one card is a usage error; one renders.
+    err = io.StringIO()
+    dev_args = ["--scene", paths["demo"][0], "--envmap", env_path, "--width",
+                "1024", "--height", "768", "--bounces", "5", "--frames", "1",
+                "--out", os.path.join(tmp, "devices", "f.png"), "--device",
+                "cuda"]
+    with contextlib.redirect_stderr(err):
+        try:
+            rc = cli.main(dev_args + ["--devices", "2"])
+        except SystemExit as e:
+            rc = e.code
+    log(f"  --devices 2 on {torch.cuda.device_count()} card(s): exit {rc}, "
+        f"{err.getvalue().strip().splitlines()[-1]!r}")
+    if rc != 2 or "visible: cuda:0" not in err.getvalue():
+        raise AssertionError("--devices 2 on one card must exit 2")
+    frame_tiles.launches = 0
+    drive(dev_args + ["--devices", "1"], {"fused_radiance": 1})
+    if frame_tiles.launches:
+        raise AssertionError("--devices 1 launched frame_tiles")
+    log("  --devices 1: one frame-kernel launch, as without the flag")
     shutil.rmtree(tmp, ignore_errors=True)
 
     mt_r, vt_words = int(mt_a[3].numel()), {"mt": inp.tri_flat.size,
@@ -1314,6 +1575,7 @@ def main() -> int:
            "mt_woop_tc3": bounds.mtbench_bound("woop_tc3", mt_r, vt,
                                                vt_words["woop"]),
            "round_fold": fold_bound,
+           "frame_tiles": frame_rows["demo"]["bound"],
            "stall": {"bound_ms": sum(bounds.stall_bound(
                v, 64, sm_clock)["bound_ms"] for v in STALL_VARIANTS),
                      "bound_by": "operations"}}
@@ -1323,6 +1585,19 @@ def main() -> int:
              "launches": launches["frame"], "max_abs_err": frame_err,
              "ms": frame_ms, "plain_ms": plain_ms,
              "timed": "demo 1024x768 5/2 vs the eager integrator"},
+            {"name": "frame_tiles", "route": "cuda",
+             "source": "refraction_tpu_torch/csrc/frame.cu",
+             "replaces": "refraction_tpu/kernels/framekernel.py:106",
+             "launches": dp_launches, "max_abs_err": tiles_err,
+             "ms": pixel_dp["demo"][4]["tiles_card_ms"],
+             "plain_ms": tiles_plain_ms,
+             "timed": "the 4 launches of a 4-shard demo frame (1024x768 "
+                      "5/2), the card's time behind a spin kernel, vs "
+                      "frame_tiles_plain on the same 4 shards; bound: the "
+                      "frame kernel's for the same pixels; launches from "
+                      "phase 9's pixel-DP frames (2, 3 and 4 shards, demo "
+                      "and large); max_abs_err: the largest over the same 4 "
+                      "shards"},
             {"name": "round", "route": "cuda",
              "source": "refraction_tpu_torch/csrc/round.cu",
              "replaces": "refraction_tpu/kernels/megakernel.py:43",
@@ -1432,7 +1707,8 @@ def main() -> int:
     print(json.dumps({"kernels": kern, "frame_stream_ms": per_frame,
                       "modular_ms": modular_ms,
                       "frame_ms_large": large_ms, "frame_cells": frame_cells,
-                      "wavefront": wave, "card": card}))
+                      "wavefront": wave, "pixel_dp": pixel_dp,
+                      "lbvh_ms": lbvh_ms, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,13 +7,15 @@ contiguous *clusters* of triangles are spatially compact — the basis of both
 the cluster-AABB culling kernel (kernels/) and the LBVH (bvh/lbvh.py).
 
 The port's copy of the numpy part of `refraction_tpu.bvh.morton` (the
-scene is built once, on the host); the jnp helpers of the JAX package's
-on-device LBVH build are not copied.
+scene is built once, on the host), and torch counterparts of its jnp
+helpers for the on-device LBVH build (bvh/lbvh.py): `expand_bits_torch`
+and `morton3d_torch`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _expand_bits_np(v: np.ndarray) -> np.ndarray:
@@ -156,3 +158,30 @@ def median_split_order(tri_pos: np.ndarray,
         order = out
         window = leaf
     return order
+
+
+def expand_bits_torch(v: torch.Tensor) -> torch.Tensor:
+    """`_expand_bits_np` on a tensor of values below 1024: torch has no full
+    uint32 arithmetic, so the products run in int64 (below 2^42 for such
+    inputs, no overflow) and each ``&`` with a mask below 2^32 keeps what
+    uint32 wraparound would. Returns int64."""
+    v = v.to(torch.int64)
+    v = (v * 0x00010001) & 0xFF0000FF
+    v = (v * 0x00000101) & 0x0F00F00F
+    v = (v * 0x00000011) & 0xC30C30C3
+    v = (v * 0x00000005) & 0x49249249
+    return v
+
+
+def morton3d_torch(points: torch.Tensor, lo: torch.Tensor,
+                   hi: torch.Tensor) -> torch.Tensor:
+    """`morton3d` on the points' device: 30-bit codes as int64. The float32
+    steps are the jnp version's; ``(q * 1024).to(int64)`` truncates toward
+    zero, as ``astype(uint32)`` does for values that are not negative."""
+    extent = torch.clamp_min(hi - lo, 1e-12)
+    q = torch.clamp((points - lo) / extent, 0.0, 0.9999999)
+    q = (q * 1024.0).to(torch.int64)
+    x = expand_bits_torch(q[..., 0])
+    y = expand_bits_torch(q[..., 1])
+    z = expand_bits_torch(q[..., 2])
+    return (x << 2) | (y << 1) | z

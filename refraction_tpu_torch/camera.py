@@ -115,8 +115,17 @@ def generate_rays(frame: CameraFrame, width: int, height: int,
     gy, gx = torch.meshgrid(torch.arange(height, dtype=f32, device=device),
                             torch.arange(width, dtype=f32, device=device),
                             indexing="ij")
-    gx = gx.reshape(-1)
-    gy = gy.reshape(-1)
+    return pixel_rays(frame, gx.reshape(-1), gy.reshape(-1), width, height,
+                      jitter)
+
+
+def pixel_rays(frame: CameraFrame, gx: torch.Tensor, gy: torch.Tensor,
+               width: int, height: int, jitter: np.ndarray | None = None):
+    """`generate_rays` for the pixels at float32 columns ``gx`` and rows
+    ``gy`` (N,) of a ``width`` x ``height`` image, on their device: each
+    ray is the one `generate_rays` gives its pixel, bit for bit."""
+    f32 = torch.float32
+    device = gx.device
     if jitter is None:
         ox = oy = 0.5
     else:

@@ -46,6 +46,17 @@
 // warp covers a compact 16x2 patch of similar rays; the stack lives in
 // local memory (L1-resident).
 //
+// Pixel-DP (parallel/sharding.make_fused_sharded_renderer): the second
+// entry, rt_frame_tiles, renders n_local global 32x32 tiles with ids
+// j * tile_stride + tile_base (a shard's round-robin slice of the padded
+// tile grid, framekernel.py:151-158), into a compact (n_local, 32, 32, 3)
+// buffer: eight 16x8 blocks per tile, so each warp keeps the compact 16x2
+// patch above. Tile ids >= n_tiles_real (the grid's round-up padding) and
+// pixels outside the image write zeros. The JAX kernel takes the shard
+// base as a scalar appended to the scalar vector (a TPU SMEM detail);
+// here base and stride are kernel arguments. Each pixel runs rt_pixel as
+// in rt_frame, so a shard's pixels equal the single launch's bit for bit.
+//
 // Scalar vector layout (as framekernel.py:96-103):
 //   [0:9]   proj_inv rows 0..2 of columns (0, 1, 3)
 //   [9:12]  camera origin
@@ -60,6 +71,7 @@
 #include "traverse_f2b.cuh"
 
 #define RT_MAX_STACK 8
+#define RT_TILE 32  // pixel-DP tile edge (framekernel.py TILE_H = TILE_W)
 
 struct RtRay {
   float ox, oy, oz, dx, dy, dz, w, cull;  // cull: +1 outside, -1 inside
@@ -180,5 +192,65 @@ extern "C" int rt_frame(const float* scalars, const float* tri,
     RT_FRAME_LAUNCH(RT_WALK_FLAT);
   }
 #undef RT_FRAME_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// The pixel-DP entry: block (16, 8), grid (2, 4, n_local); block z renders
+// local tile j = global tile j * tile_stride + tile_base.
+template <int WALK>
+__global__ void __launch_bounds__(128) rt_frame_tiles_kernel(
+    const float* __restrict__ sc, const float* __restrict__ tri,
+    const float* __restrict__ norm, const float* __restrict__ supers,
+    const float* __restrict__ clusters, const float* __restrict__ subs,
+    const float* __restrict__ env, float* __restrict__ out, int width,
+    int height, int spp, float inv_spp, int max_refract, int max_reflect,
+    int n_supers, int n_clusters, int cluster_size, int sub_tris, int env_h,
+    int env_w, int tile_stride, int tile_base, int n_tiles_real) {
+  const int lx = blockIdx.x * blockDim.x + threadIdx.x;  // 0..31 in the tile
+  const int ly = blockIdx.y * blockDim.y + threadIdx.y;
+  const int j = blockIdx.z;
+  const int tile = j * tile_stride + tile_base;
+  const int tiles_x = (width + RT_TILE - 1) / RT_TILE;
+  const int ty = tile / tiles_x;
+  const int px = (tile - ty * tiles_x) * RT_TILE + lx;
+  const int py = ty * RT_TILE + ly;
+  float3 c = make_float3(0.0f, 0.0f, 0.0f);
+  if (tile < n_tiles_real && px < width && py < height) {
+    const RtScene scene{supers, clusters, subs, tri, norm, n_supers,
+                        n_clusters, cluster_size / sub_tris, sub_tris};
+    c = rt_pixel<WALK>(scene, sc, env, px, py, width, height, spp, inv_spp,
+                       max_refract, max_reflect, env_h, env_w);
+  }
+  float* o = out + 3 * (((size_t)j * RT_TILE + ly) * RT_TILE + lx);
+  o[0] = c.x;
+  o[1] = c.y;
+  o[2] = c.z;
+}
+
+extern "C" int rt_frame_tiles(const float* scalars, const float* tri,
+                              const float* norm, const float* supers,
+                              const float* clusters, const float* subs,
+                              const float* env, float* out, int width,
+                              int height, int spp, float inv_spp,
+                              int max_refract, int max_reflect, int n_supers,
+                              int n_clusters, int cluster_size, int sub_tris,
+                              int env_h, int env_w, int tile_stride,
+                              int tile_base, int n_local, int n_tiles_real,
+                              void* stream) {
+  if (n_local < 1) return (int)cudaSuccess;
+  const dim3 block(16, 8);
+  const dim3 grid(RT_TILE / block.x, RT_TILE / block.y, n_local);
+#define RT_TILES_LAUNCH(WALK)                                                 \
+  rt_frame_tiles_kernel<WALK><<<grid, block, 0, (cudaStream_t)stream>>>(      \
+      scalars, tri, norm, supers, clusters, subs, env, out, width, height,    \
+      spp, inv_spp, max_refract, max_reflect, n_supers, n_clusters,           \
+      cluster_size, sub_tris, env_h, env_w, tile_stride, tile_base,           \
+      n_tiles_real)
+  if (n_supers > 0) {
+    RT_TILES_LAUNCH(RT_WALK_SUPERS);
+  } else {
+    RT_TILES_LAUNCH(RT_WALK_FLAT);
+  }
+#undef RT_TILES_LAUNCH
   return (int)cudaGetLastError();
 }

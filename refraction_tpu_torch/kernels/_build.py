@@ -6,7 +6,8 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds). The library lands in ``refraction_tpu_torch/_build/`` under a
 name that carries a hash of the sources and flags, so an edit rebuilds
 and an unchanged tree reuses the file. A missing ``nvcc`` or a failed
-compile raises with the compiler's output; nothing falls back.
+compile raises with the compiler's output; nothing falls back. `launch`
+calls an entry point on the device of the wrapper's tensors.
 
 ``-fmad=false`` keeps multiply-adds unfused, so Möller–Trumbore and the
 shading round like numpy float32 and closest-hit winners match the
@@ -15,6 +16,7 @@ reference's.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -23,6 +25,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -51,6 +55,10 @@ SIGNATURES = {
     # cluster_size, sub_tris, env_h, env_w, stream
     "rt_frame": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
                  _I, _I, _I, _I, _I, _I, _P],
+    # the rt_frame arguments up to env_w, then tile_stride, tile_base,
+    # n_local, n_tiles_real, stream
+    "rt_frame_tiles": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # tmin, tmax, ior, r0, tri, norm, supers, clusters, subs, env, state,
     # w, rad, next, variant, n_supers, n_clusters, cluster_size, sub_tris,
     # env_h, env_w, stream
@@ -190,3 +198,24 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = library().rt_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")
+
+
+def on_device(device: torch.device):
+    """A context that makes ``device`` the thread's current CUDA device:
+    the runtime launches on the current device, so a stream of ``cuda:1``
+    launched from a thread whose current device is ``cuda:0`` fails.
+    Where ``device`` is current already it enters nothing, so a launch on
+    one device pays no switch."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and the current stream
+    of ``device``, on ``device`` (`on_device`). Raises if the entry point
+    returns an error."""
+    with on_device(device):
+        err = getattr(library(), name)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, name)

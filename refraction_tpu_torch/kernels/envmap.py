@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from refraction_tpu_torch.kernels._build import check, library
+from refraction_tpu_torch.kernels._build import launch
 from refraction_tpu_torch.ops.shade import envmap_color
 
 
@@ -53,11 +53,9 @@ def env_contribution(scene, dirs, weight):
     out = torch.empty(n, 3, dtype=torch.float32, device=dirs.device)
     if n == 0:
         return out
-    err = library().rt_env(
-        env.data_ptr(), env.shape[0], env.shape[1], dirs.data_ptr(),
-        weight.data_ptr(), n, out.data_ptr(),
-        torch.cuda.current_stream(dirs.device).cuda_stream)
-    check(err, "rt_env")
+    launch("rt_env", dirs.device, env.data_ptr(), env.shape[0],
+           env.shape[1], dirs.data_ptr(), weight.data_ptr(), n,
+           out.data_ptr())
     env_contribution.launches += 1
     return out
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from refraction_tpu_torch.kernels._build import check, library
+from refraction_tpu_torch.kernels._build import launch
 from refraction_tpu_torch.ops.intersect import (
     interpolate_normal,
     intersect_closest,
@@ -99,16 +99,13 @@ def closest_hit(scene, origins, dirs, cull, tmin: float, tmax: float):
     normal = torch.empty(n, 3, dtype=torch.float32, device=origins.device)
     if n == 0:
         return t, idx, normal
-    lib = library()
-    err = lib.rt_closest_hit(
-        scene.tri_packed.data_ptr(), scene.tri_norm_packed.data_ptr(),
-        scene.super_bounds.data_ptr(), scene.cluster_bounds.data_ptr(),
-        scene.sub_bounds.data_ptr(), origins.data_ptr(), dirs.data_ptr(),
-        cull.data_ptr(), n, f32(tmin), f32(tmax), scene.num_supers,
-        scene.num_clusters, scene.cluster_size, scene.sub_tris,
-        t.data_ptr(), idx.data_ptr(), normal.data_ptr(),
-        torch.cuda.current_stream(origins.device).cuda_stream)
-    check(err, "rt_closest_hit")
+    launch("rt_closest_hit", origins.device,
+           scene.tri_packed.data_ptr(), scene.tri_norm_packed.data_ptr(),
+           scene.super_bounds.data_ptr(), scene.cluster_bounds.data_ptr(),
+           scene.sub_bounds.data_ptr(), origins.data_ptr(), dirs.data_ptr(),
+           cull.data_ptr(), n, f32(tmin), f32(tmax), scene.num_supers,
+           scene.num_clusters, scene.cluster_size, scene.sub_tris,
+           t.data_ptr(), idx.data_ptr(), normal.data_ptr())
     closest_hit.launches += 1
     return t, idx, normal
 

@@ -42,7 +42,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from refraction_tpu_torch.kernels._build import check, library
+from refraction_tpu_torch.kernels._build import check, launch, library, on_device
 from refraction_tpu_torch.kernels.envmap import check_envmap, env_contribution_plain
 from refraction_tpu_torch.kernels.intersect import check_scene_tables, closest_hit_plain
 from refraction_tpu_torch.ops.shade import (
@@ -191,17 +191,13 @@ def mega_round(scene, state: torch.Tensor, limits: Sequence[float],
     if w == 0:
         return RoundOut(rad, children)
     env = scene.envmap
-    err = library().rt_round(
-        tmin, tmax, ior, r0, scene.tri_packed.data_ptr(),
-        scene.tri_norm_packed.data_ptr(), scene.super_bounds.data_ptr(),
-        scene.cluster_bounds.data_ptr(), scene.sub_bounds.data_ptr(),
-        env.data_ptr(), state.data_ptr(), w, rad.data_ptr(),
-        None if children is None else children.data_ptr(), variant,
-        scene.num_supers, scene.num_clusters, scene.cluster_size,
-        scene.sub_tris,
-        env.shape[0], env.shape[1],
-        torch.cuda.current_stream(dev).cuda_stream)
-    check(err, "rt_round")
+    launch("rt_round", dev, tmin, tmax, ior, r0, scene.tri_packed.data_ptr(),
+           scene.tri_norm_packed.data_ptr(), scene.super_bounds.data_ptr(),
+           scene.cluster_bounds.data_ptr(), scene.sub_bounds.data_ptr(),
+           env.data_ptr(), state.data_ptr(), w, rad.data_ptr(),
+           None if children is None else children.data_ptr(), variant,
+           scene.num_supers, scene.num_clusters, scene.cluster_size,
+           scene.sub_tris, env.shape[0], env.shape[1])
     mega_round.launches += 1
     return RoundOut(rad, children)
 
@@ -322,12 +318,6 @@ def fold_round_sums_plain(slab: torch.Tensor, mask: torch.Tensor,
     mask.zero_()
 
 
-def _fold(launch, slab, mask, radiance, stream) -> None:
-    check(launch(slab.data_ptr(), mask.data_ptr(), mask.shape[0],
-                 radiance.data_ptr(), stream), "rt_fold_round")
-    fold_round_sums.launches += 1
-
-
 def fold_round_sums(slab: torch.Tensor, mask: torch.Tensor,
                     radiance: torch.Tensor) -> None:
     """Adds to ``radiance`` (N, 3), per pixel p, the sum of the ``slab``
@@ -343,8 +333,9 @@ def fold_round_sums(slab: torch.Tensor, mask: torch.Tensor,
     if radiance.device.type != "cuda":
         raise ValueError(f"fold_round_sums: unsupported device "
                          f"{radiance.device}")
-    _fold(library().rt_fold_round, slab, mask, radiance,
-          torch.cuda.current_stream(radiance.device).cuda_stream)
+    launch("rt_fold_round", radiance.device, slab.data_ptr(),
+           mask.data_ptr(), mask.shape[0], radiance.data_ptr())
+    fold_round_sums.launches += 1
 
 
 fold_round_sums.launches = 0
@@ -411,23 +402,27 @@ class QueueRound:
         n = radiance.shape[0]
         slab, mask = ((None, None) if queue.width <= n
                       else self._scratch(queue.width, n))
-        err = self._launch(
-            *_limits(limits), *self._tables, queue.state.data_ptr(),
-            queue.slot.data_ptr(), queue.count.data_ptr(),
-            queue.state.shape[1], queue.width, n, radiance.data_ptr(),
-            None if slab is None else slab.data_ptr(),
-            None if mask is None else mask.data_ptr(),
-            None if pixel_rays is None else pixel_rays.data_ptr(),
-            None if out is None else out.state.data_ptr(),
-            None if out is None else out.slot.data_ptr(),
-            None if out is None else out.count.data_ptr(),
-            0 if out is None else out.state.shape[1],
-            _RADIANCE if not want_children
-            else _FULL if want_reflect else _CHILDREN, *self._sizes)
-        check(err, "rt_round_queue")
-        mega_round_queue.launches += 1
-        if slab is not None:
-            _fold(self._launch_fold, slab, mask, radiance, self._stream)
+        with on_device(self.device):
+            err = self._launch(
+                *_limits(limits), *self._tables, queue.state.data_ptr(),
+                queue.slot.data_ptr(), queue.count.data_ptr(),
+                queue.state.shape[1], queue.width, n, radiance.data_ptr(),
+                None if slab is None else slab.data_ptr(),
+                None if mask is None else mask.data_ptr(),
+                None if pixel_rays is None else pixel_rays.data_ptr(),
+                None if out is None else out.state.data_ptr(),
+                None if out is None else out.slot.data_ptr(),
+                None if out is None else out.count.data_ptr(),
+                0 if out is None else out.state.shape[1],
+                _RADIANCE if not want_children
+                else _FULL if want_reflect else _CHILDREN, *self._sizes)
+            check(err, "rt_round_queue")
+            mega_round_queue.launches += 1
+            if slab is not None:
+                check(self._launch_fold(slab.data_ptr(), mask.data_ptr(), n,
+                                        radiance.data_ptr(), self._stream),
+                      "rt_fold_round")
+                fold_round_sums.launches += 1
 
 
 def mega_round_queue(scene, queue: LaneQueue, limits: Sequence[float],

@@ -29,6 +29,14 @@ There is no fallback: ``--device cuda`` without CUDA is an error.
   the per-round wavefront and exits.
 - ``--serve PORT`` publishes every frame to an HTTP viewer (port 0 picks
   a free port, which is logged); ``--frames 0`` orbits until SIGINT.
+- ``--devices N`` (N > 1) shards each frame over the first N CUDA cards
+  of this process (`parallel.sharding`): backend ``cuda`` through the
+  frame kernel's pixel-DP entry (`make_fused_sharded_renderer`, one
+  launch per card), backend ``torch`` through the wavefront
+  (`make_sharded_renderer`). The image is gathered on the first card.
+  Fewer visible cards is an error (exit code 2) that names them; with
+  ``--device cpu`` the N shards run on the CPU, which is how the tests
+  drive the flag.
 
 The loop is pipelined, as the JAX CLI's: right behind each frame it
 queues the frame's copies to the host (the u8 display image, and the
@@ -37,8 +45,6 @@ two pinned buffers and records an event; it enqueues the next frame, and
 only then waits for that event and writes, publishes or accumulates the
 frame while the card renders the next one (`HostCopies`). The files are
 those of a frame-by-frame render.
-
-Not ported: ``--devices``.
 
 Examples:
   python -m refraction_tpu_torch.run --scene shell.obj --frames 8 \\
@@ -49,6 +55,7 @@ Examples:
       --accumulate --spp 4 --out /tmp/acc.png
   python -m refraction_tpu_torch.run --scene my.obj --serve 8000 --frames 0
   python -m refraction_tpu_torch.run --baseline 3 --frames 1
+  python -m refraction_tpu_torch.run --scene my.obj --devices 2 --frames 8
 """
 
 from __future__ import annotations
@@ -69,6 +76,11 @@ from refraction_tpu_torch.config import (
 )
 from refraction_tpu_torch.io.mtl import ior_for_scene
 from refraction_tpu_torch.io.png import write_png
+from refraction_tpu_torch.parallel.sharding import (
+    make_fused_sharded_renderer,
+    make_mesh,
+    make_sharded_renderer,
+)
 from refraction_tpu_torch.render import (
     Accumulator,
     heatmap_to_rgb,
@@ -261,15 +273,28 @@ def parse_args(argv=None):
                    help="display transform = clamp only (no gamma)")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda)")
+    p.add_argument("--devices", type=int, default=0,
+                   help="shard each frame over N devices of the --device"
+                        " type (pixel data parallelism; 0 or 1 = one"
+                        " device): the first N CUDA cards, or N shards on"
+                        " the CPU")
     args = p.parse_args(argv)
     if args.resume and not args.accumulate:
         p.error("--resume continues an --accumulate render: add --accumulate")
+    args.mesh = None
+    if args.devices > 1:
+        try:
+            args.mesh = make_mesh(args.devices, torch.device(args.device).type)
+        except ValueError as e:
+            p.error(f"--devices {args.devices}: {e}")
     return args
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     device = require_device(args.device)
+    if args.mesh:
+        device = args.mesh[0]  # the scene's device and the image's
     setup_logging()
     out_dir = os.path.dirname(args.out)
     if out_dir:
@@ -304,7 +329,15 @@ def main(argv=None) -> int:
                  int(counts.max()), float(counts.mean()), args.heatmap)
         return 0
 
-    renderer = make_renderer(cfg, backend, device)
+    if args.mesh:
+        if backend == "cuda":
+            renderer = make_fused_sharded_renderer(cfg, args.mesh)
+        else:
+            renderer = make_sharded_renderer(cfg, args.mesh, backend)
+        log.info("pixel-DP over %d devices (%s)", len(args.mesh),
+                 "fused kernel" if backend == "cuda" else "wavefront")
+    else:
+        renderer = make_renderer(cfg, backend, device)
     acc = None
     if args.accumulate:
         acc = (Accumulator.load(args.resume) if args.resume

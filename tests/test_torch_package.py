@@ -71,7 +71,7 @@ for m in mods:
 need = {"run", "viewer", "profile_rounds", "mxu_mt_bench", "stallbench",
         "config", "camera", "scene", "io.objmesh", "io.texture", "io.hdr",
         "io.png", "io.mtl", "io.primitives", "bvh.morton", "bvh.clusters",
-        "utils.stats"}
+        "bvh.lbvh", "parallel.sharding", "utils.stats"}
 missing = {"refraction_tpu_torch." + m for m in need} - set(mods)
 assert not missing, missing
 # The CLI on the CPU at a tiny size, from files the port writes itself.

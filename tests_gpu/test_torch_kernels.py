@@ -629,3 +629,126 @@ def test_modular_path_matches_plain_and_fused(cuda, name, spp):
         assert ok, why
     auto = make_renderer(cfg, "auto", cuda)(scene, frame)
     assert torch.equal(auto, make_renderer(cfg, "cuda", cuda)(scene, frame))
+
+
+# ---- the frame kernel's pixel-DP entry and the sharded renderers ---------
+
+def test_frame_tiles_kernel_matches_plain(cuda):
+    """Shard 1 of 4 over the 6 tiles of 96x64 (padded to 8): global tiles
+    1 and 5, and the gated pad tiles of shard 3 (tiles 3 and 7)."""
+    from refraction_tpu_torch.kernels.framekernel import (
+        frame_tiles, frame_tiles_plain)
+
+    scene = scene_from_jax(_scenes()["sphere"], cuda)
+    cfg = RenderConfig(width=96, height=64, spp=2)
+    scal = build_scalars(orbit_camera(0.4, cfg), cfg, sample_offsets(2), cuda)
+    before = frame_tiles.launches
+    got = frame_tiles(scene, scal, cfg, 4, 1, 2, 6)
+    assert frame_tiles.launches == before + 1
+    assert got.shape == (2, 32, 32, 3)
+    ok, why = _img_ok(got, frame_tiles_plain(scene, scal, cfg, 4, 1, 2, 6))
+    assert ok, why
+    img = fused_radiance(scene, scal, cfg)
+    assert torch.equal(got[0], img[:32, 32:64])
+    assert torch.equal(got[1], img[32:64, 64:96])
+    gated = frame_tiles(scene, scal, cfg, 4, 3, 2, 6)  # tiles 3 and 7
+    assert torch.equal(gated[0], img[32:64, :32])
+    assert not bool(gated[1].any())
+
+
+@pytest.mark.parametrize("ndev", [2, 3, 4])
+@pytest.mark.parametrize("name", ["cube", "sphere"])
+def test_fused_pixel_dp_on_one_card_equals_the_frame_kernel(cuda, name, ndev):
+    """The device list [cuda:0] * k: every shard's launch, gather and
+    reassembly on the one card, the image the single launch's bit for
+    bit; k frame_tiles launches and no fused_radiance launch."""
+    from refraction_tpu_torch.kernels.framekernel import frame_tiles
+    from refraction_tpu_torch.parallel.sharding import (
+        make_fused_sharded_renderer)
+
+    scene = scene_from_jax(_scenes()[name], cuda)
+    cfg = RenderConfig(width=200, height=120)
+    frame = orbit_camera(0.4, cfg)
+    single = fused_radiance(scene, build_scalars(frame, cfg,
+                                                 sample_offsets(1), cuda), cfg)
+    render = make_fused_sharded_renderer(cfg, [cuda] * ndev)
+    before = (frame_tiles.launches, fused_radiance.launches)
+    img = render(scene, frame)
+    torch.cuda.synchronize()
+    assert (frame_tiles.launches - before[0],
+            fused_radiance.launches - before[1]) == (ndev, 0)
+    assert torch.equal(img, single)
+
+
+def test_wavefront_and_tri_sharding_on_one_card(cuda):
+    from refraction_tpu_torch.parallel.sharding import (
+        make_sharded_renderer, make_trisharded_intersect)
+
+    scene = scene_from_jax(_scenes()["sphere"], cuda)
+    cfg = RenderConfig(width=96, height=64)
+    frame = orbit_camera(0.4, cfg)
+    o, d = generate_rays(frame, 96, 64, cuda)
+    one = render_pixels_mega(scene, o, d, cfg).reshape(64, 96, 3)
+    two = make_sharded_renderer(cfg, [cuda] * 2, "cuda")(scene, frame)
+    assert torch.equal(two, one)
+    o, d, cull = _rays(4096, 8, cuda)
+    wf, alive = cull > 0, cull != 0
+    be = get_backend("torch")
+    ref = be.intersect(scene, o, d, wf, alive, 1e-4, 100.0)
+    got = make_trisharded_intersect([cuda] * 2)(scene, o, d, wf, alive,
+                                                1e-4, 100.0)
+    assert torch.equal(got[0], ref[0])
+    assert torch.equal(got[2][ref[0]], ref[2][ref[0]])
+    assert torch.equal(got[1][ref[0]], ref[1][ref[0]])
+
+
+def test_lbvh_on_the_card_matches_the_brute_force(cuda):
+    from refraction_tpu_torch.bvh.lbvh import lbvh_from_scene, lbvh_intersect
+
+    scene = scene_from_jax(_scenes()["sphere"], cuda)
+    o, d, cull = _rays(8192, 9, cuda)
+    wf = cull > 0
+    ref = get_backend("torch").intersect(scene, o, d, wf, torch.ones_like(wf),
+                                         1e-4, 100.0)
+    hit, t, idx = lbvh_intersect(lbvh_from_scene(scene), o, d, wf, 1e-4,
+                                 100.0)
+    assert torch.equal(hit, ref[0]) and bool(hit.any())
+    assert float((t - ref[1])[hit].abs().max()) <= 1e-5
+    assert float((idx == ref[2])[hit].double().mean()) >= 0.999
+
+
+@pytest.mark.two_cards
+def test_two_card_pixel_dp_and_tri_tp_equal_one_card(two_cards):
+    """cuda:0 and cuda:1: the fused and wavefront pixel-DP images and the
+    triangle-sharded winners equal one card's bit for bit. The thread's
+    current device stays cuda:0 throughout, so every launch on cuda:1
+    must enter its tensors' device (kernels/_build.launch)."""
+    from refraction_tpu_torch.kernels.framekernel import frame_tiles
+    from refraction_tpu_torch.parallel.sharding import (
+        make_fused_sharded_renderer, make_sharded_renderer,
+        make_trisharded_intersect)
+
+    dev0, dev1 = two_cards
+    torch.cuda.set_device(dev0)
+    scene = scene_from_jax(_scenes()["sphere"], dev0)
+    cfg = RenderConfig(width=200, height=120)
+    frame = orbit_camera(0.4, cfg)
+    single = fused_radiance(scene, build_scalars(frame, cfg,
+                                                 sample_offsets(1), dev0), cfg)
+    before = frame_tiles.launches
+    img = make_fused_sharded_renderer(cfg, [dev0, dev1])(scene, frame)
+    torch.cuda.synchronize(dev1)
+    assert frame_tiles.launches == before + 2
+    assert img.device == dev0 and torch.equal(img, single)
+    o, d = generate_rays(frame, 200, 120, dev0)
+    one = render_pixels_mega(scene, o, d, cfg).reshape(120, 200, 3)
+    two = make_sharded_renderer(cfg, [dev0, dev1], "cuda")(scene, frame)
+    assert torch.equal(two, one)
+    o, d, cull = _rays(4096, 8, dev0)
+    wf, alive = cull > 0, cull != 0
+    ref = make_trisharded_intersect([dev0])(scene, o, d, wf, alive, 1e-4,
+                                            100.0)
+    got = make_trisharded_intersect([dev0, dev1])(scene, o, d, wf, alive,
+                                                  1e-4, 100.0)
+    for a, b in zip(got[:3], ref[:3]):
+        assert torch.equal(a, b)

@@ -104,7 +104,23 @@ Phases (any failure raises; nothing is caught):
      (build times at 1,280 and 81,920 tris, 2^16 rays against the brute
      force, a 256x192 frame through its backend against the frame
      kernel); ``--devices 2`` on one card exits 2 naming it, ``--devices
-     1`` renders with one frame-kernel launch.
+     1`` renders with one frame-kernel launch;
+ 10. multi-process rendering (``python -m
+     refraction_tpu_torch.parallel.distributed --device cuda``): two
+     ranks on the one card, joined over gloo through a free localhost
+     port, on the demo scene at 1024x768, 5/2 bounces. Frame sharding, 8
+     orbit frames: both ranks report the same global counts and
+     checksum, the sum of their locals and, to rel 1e-6, the sum of the
+     frame means of one process's ``make_renderer(cfg, "cuda", cuda:0)``
+     over the same angles; every PNG lands in one rank's directory; each
+     rank launched the frame kernel once per frame of its share. Pixel-DP
+     of one frame (``--fused-dp``): both ranks report the same sha256 as
+     ``rt_frame``'s image here and ``matches_single_device``, each with
+     one ``frame_tiles`` launch and one ``fused_radiance`` (its check). A
+     rank that exits non-zero or hangs fails the run; each rank's wall
+     time and its split (group start, scene upload, frames, collectives)
+     are logged. Two ranks time-share one card: the times are the cost of
+     processes and gloo, not scaling.
 
 The line before the last is a JSON object with each kernel's launches in
 its main-path phase (5 for the frame kernel, 9 for its pixel-DP entry
@@ -116,19 +132,23 @@ instruments), its error against the plain version, both times and its
 bound (bounds.py; ``library_ms`` is null: no single PyTorch call computes
 any of these functions; the stall entry's bound is the sum of the six
 variants' bounds, whose latency floor is a count of dependent operations
-and so reported on the operations side); the last line is ``{"ok": true, "device":
+and so reported on the operations side; phase 10's launches are made in
+the ranks' processes, checked from their JSON lines and not added here;
+its seconds are under ``distributed_s``); the last line is ``{"ok": true, "device":
 {...}}``. Without CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import logging
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -146,6 +166,11 @@ CHILD_ATOL = 1e-5       # round children where liveness agrees
 # Compacted vs static-layout wavefront: both sum a pixel's misses in slot
 # order, so the images are held bit for bit (no tolerance).
 LARGE_STRIDE = 64       # plain version on every 64th pixel of the large frame
+# Phase 10: the frame-sharded checksum against one process's sum of the
+# same frames' means (the same kernel on the same card; float32 stats sum).
+DIST_FRAMES = 8
+DIST_RTOL = 1e-6
+DIST_TIMEOUT = 240      # seconds for a pair of ranks
 
 
 def log(msg: str) -> None:
@@ -239,6 +264,69 @@ def serve_one_frame(drive, frames: int, argv) -> "np.ndarray":
     if not png:
         raise AssertionError("no frame was fetched from the viewer")
     return decode_png_bytes(png[0])
+
+
+def run_ranks(workdir: str, args, out: str | None = None) -> list[dict]:
+    """Two ranks of ``python -m refraction_tpu_torch.parallel.distributed
+    --device cuda`` with ``args`` (rank r writes its PNGs to ``out`` + r),
+    joined through a free localhost port; stdout and stderr go to files in
+    ``workdir``. A rank that exits non-zero, or a pair still running after
+    DIST_TIMEOUT, fails the run, and no rank is left running. Returns per
+    rank its JSON line (``stats``), its ``timings`` log lines merged and
+    its wall seconds from the start of both."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.makedirs(workdir, exist_ok=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    logs = [(os.path.join(workdir, f"rank{r}.out"),
+             os.path.join(workdir, f"rank{r}.err")) for r in range(2)]
+    procs, wall = [], [None, None]
+    t0 = time.perf_counter()
+    try:
+        for r, (out_path, err_path) in enumerate(logs):
+            argv = [sys.executable, "-m",
+                    "refraction_tpu_torch.parallel.distributed",
+                    "--coordinator", f"127.0.0.1:{port}",
+                    "--num-processes", "2", "--process-id", str(r),
+                    "--device", "cuda", *args]
+            if out:
+                argv += ["--out", f"{out}{r}"]
+            with open(out_path, "w") as fo, open(err_path, "w") as fe:
+                procs.append(subprocess.Popen(argv, cwd=root, stdout=fo,
+                                              stderr=fe))
+        while None in wall:
+            for r, p in enumerate(procs):
+                if wall[r] is None and p.poll() is not None:
+                    wall[r] = time.perf_counter() - t0
+                    if p.returncode != 0:
+                        with open(logs[r][1]) as f:
+                            err = f.read()[-3000:]
+                        raise AssertionError(f"rank {r} exited "
+                                             f"{p.returncode}:\n{err}")
+            if time.perf_counter() - t0 > DIST_TIMEOUT:
+                raise AssertionError(f"ranks still running after "
+                                     f"{DIST_TIMEOUT} s")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (out_path, err_path) in enumerate(logs):
+        with open(out_path) as f:
+            stats = json.loads(f.read().strip().splitlines()[-1])
+        timings = {}
+        with open(err_path) as f:
+            for line in f:
+                m = re.search(r"timings (\{.*\})", line)
+                if m:
+                    timings.update(json.loads(m.group(1)))
+        timings.pop("rank", None)
+        results.append({"stats": stats, "timings": timings,
+                        "wall_s": wall[r]})
+    return results
 
 
 def main() -> int:
@@ -1558,6 +1646,76 @@ def main() -> int:
     if frame_tiles.launches:
         raise AssertionError("--devices 1 launched frame_tiles")
     log("  --devices 1: one frame-kernel launch, as without the flag")
+
+    # --- phase 10: multi-process rendering on the one card ---------------
+    log("phase 10: python -m refraction_tpu_torch.parallel.distributed, two "
+        "ranks on cuda:0 over gloo (frame sharding, then pixel-DP)")
+    cfg_m = RenderConfig(width=1024, height=768, cluster_size=128,
+                         scene_path=paths["demo"][0],
+                         envmap_path=paths["demo"][1])
+    if demo.cluster_size != 128:
+        raise AssertionError(f"demo scene: clusters of {demo.cluster_size}")
+    render_m = make_renderer(cfg_m, "cuda", dev)
+    angles = [0.01 + 0.01 * k for k in range(DIST_FRAMES)]
+    ref_sum = sum(float(render_m(demo, orbit_camera(a, cfg_m)).cpu().numpy()
+                        .mean()) for a in angles)
+    ref_sha = hashlib.sha256(render_m(demo, orbit_camera(0.35, cfg_m)).cpu()
+                             .numpy().tobytes()).hexdigest()
+    out_m = os.path.join(tmp, "distributed")
+    frames_m = run_ranks(os.path.join(tmp, "ranks_frames"), [
+        "--scene", paths["demo"][0], "--envmap", paths["demo"][1],
+        "--width", "1024", "--height", "768", "--frames", str(DIST_FRAMES)],
+        out_m)
+    s0, s1 = (r["stats"] for r in frames_m)
+    names = sorted(n for r in range(2) if os.path.isdir(f"{out_m}{r}")
+                   for n in os.listdir(f"{out_m}{r}"))
+    global_sum = s0["checksum_global"]
+    frames_ok = (
+        s0["frames_rendered_global"] == s1["frames_rendered_global"]
+        == DIST_FRAMES
+        and s0["frames_rendered_local"] + s1["frames_rendered_local"]
+        == DIST_FRAMES
+        and global_sum == s1["checksum_global"]
+        and abs(global_sum - (s0["checksum_local"] + s1["checksum_local"]))
+        <= DIST_RTOL * abs(global_sum)
+        and abs(global_sum - ref_sum) <= DIST_RTOL * abs(ref_sum)
+        and names == [f"frame_{k:04d}.png" for k in range(DIST_FRAMES)]
+        and all(r["stats"]["launches"] == {
+            "fused_radiance": r["stats"]["frames_rendered_local"],
+            "frame_tiles": 0} for r in frames_m))
+    log(f"  frame sharding, {DIST_FRAMES} demo frames 1024x768 5/2 over 2 "
+        f"ranks: global checksum {global_sum!r} on both, locals "
+        f"{s0['checksum_local']!r} + {s1['checksum_local']!r}; one process's "
+        f"make_renderer(cfg, 'cuda', cuda:0) over the same angles "
+        f"{ref_sum!r} (rel {abs(global_sum - ref_sum) / ref_sum:.2e}, bar "
+        f"{DIST_RTOL:g}); PNGs {len(names)}; launches "
+        f"{[r['stats']['launches'] for r in frames_m]}")
+    dp_m = run_ranks(os.path.join(tmp, "ranks_dp"), [
+        "--scene", paths["demo"][0], "--envmap", paths["demo"][1],
+        "--width", "1024", "--height", "768", "--fused-dp"])
+    d0, d1 = (r["stats"] for r in dp_m)
+    dp_ok = (d0["devices_global"] == d1["devices_global"] == 2
+             and d0["sha256"] == d1["sha256"] == ref_sha
+             and d0["matches_single_device"] and d1["matches_single_device"]
+             and all(r["stats"]["launches"] == {"fused_radiance": 1,
+                                                "frame_tiles": 1}
+                     for r in dp_m))
+    log(f"  pixel-DP, one demo frame over 2 ranks: sha256 {d0['sha256'][:16]}"
+        f" / {d1['sha256'][:16]}, rt_frame's here {ref_sha[:16]}; "
+        f"matches_single_device {d0['matches_single_device']}, "
+        f"{d1['matches_single_device']}; launches "
+        f"{[r['stats']['launches'] for r in dp_m]}")
+    for tag, runs_m in (("frames", frames_m), ("pixel-DP", dp_m)):
+        for r, run_m in enumerate(runs_m):
+            log(f"  {tag} rank {r} on {run_m['stats']['device']}: process "
+                f"wall {run_m['wall_s']:.3f} s; {run_m['timings']} [{card}]")
+    if not (frames_ok and dp_ok):
+        raise AssertionError(f"phase 10: frame sharding ok {frames_ok}, "
+                             f"pixel-DP ok {dp_ok}")
+    distributed_m = {mode: [{"wall_s": r["wall_s"], **r["timings"]}
+                            for r in runs_m]
+                     for mode, runs_m in (("frames", frames_m),
+                                          ("fused_dp", dp_m))}
     shutil.rmtree(tmp, ignore_errors=True)
 
     mt_r, vt_words = int(mt_a[3].numel()), {"mt": inp.tri_flat.size,
@@ -1708,7 +1866,8 @@ def main() -> int:
                       "modular_ms": modular_ms,
                       "frame_ms_large": large_ms, "frame_cells": frame_cells,
                       "wavefront": wave, "pixel_dp": pixel_dp,
-                      "lbvh_ms": lbvh_ms, "card": card}))
+                      "lbvh_ms": lbvh_ms, "distributed_s": distributed_m,
+                      "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

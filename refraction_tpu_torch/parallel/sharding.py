@@ -6,9 +6,10 @@ its local devices through ``shard_map``, and its collectives are an
 ``all_gather``, a ``psum`` and the assembly of a replicated output. The
 port is the same: one process drives a list of local ``torch.device``s
 (`make_mesh`), launches every shard's work on its device, then gathers
-the shards' results on the first device, in shard order. Multi-process
-rendering over ``torch.distributed`` is `parallel/distributed.py`'s
-work, not this module's.
+the shards' results on the first device, in shard order. Rendering over
+several processes (``torch.distributed``, one rank per process) is
+`parallel.distributed`, which reuses `replicate_scene` and
+`assemble_tiles` from here.
 
 - **Pixel data parallelism of the frame kernel**
   (`make_fused_sharded_renderer`): shard d of S renders global 32x32

@@ -13,6 +13,13 @@ The compacted round sums a pixel's misses in slot order, so it and the
 wavefront are compared with the static layout bit for bit.
 """
 
+import hashlib
+import json
+import os
+import socket
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -752,3 +759,70 @@ def test_two_card_pixel_dp_and_tri_tp_equal_one_card(two_cards):
                                                   1e-4, 100.0)
     for a, b in zip(got[:3], ref[:3]):
         assert torch.equal(a, b)
+
+
+def _two_rank_fused_dp(width, height):
+    """Two ranks of ``python -m refraction_tpu_torch.parallel.distributed
+    --fused-dp --device cuda`` on the CLI's default scene, joined over
+    gloo through a free localhost port; their JSON lines in rank order.
+    Both are killed if either outlives the timeout."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "refraction_tpu_torch.parallel.distributed",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(rank), "--device", "cuda", "--fused-dp",
+         "--width", str(width), "--height", str(height)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, f"rank failed:\n{err[-3000:]}"
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def _rt_frame_sha(width, height, dev):
+    """sha256 of the frame kernel's single-launch image of the CLI's
+    default scene and --fused-dp angle (0.35), on ``dev``."""
+    scene = scene_from_jax(build_scene(make_icosphere(2, 1.2),
+                                       make_gradient_envmap(64, 128), 32)[0],
+                           dev)
+    cfg = RenderConfig(width=width, height=height, cluster_size=32)
+    img = fused_radiance(scene, build_scalars(orbit_camera(0.35, cfg), cfg,
+                                              sample_offsets(1), dev), cfg)
+    return hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest()
+
+
+def test_two_process_fused_dp_equals_rt_frame(cuda):
+    """Two ranks on cuda:0 (rank r takes cuda:(r % cards)): 48 tiles, 24
+    a rank; both images are rt_frame's bit for bit."""
+    s0, s1 = _two_rank_fused_dp(256, 192)
+    count = torch.cuda.device_count()
+    assert [s0["device"], s1["device"]] == [f"cuda:{r % count}"
+                                            for r in range(2)]
+    assert s0["devices_global"] == s1["devices_global"] == 2
+    assert s0["sha256"] == s1["sha256"] == _rt_frame_sha(256, 192, cuda)
+    assert s0["matches_single_device"] and s1["matches_single_device"]
+    for s in (s0, s1):
+        assert s["launches"] == {"fused_radiance": 1, "frame_tiles": 1}
+
+
+@pytest.mark.two_cards
+def test_two_process_fused_dp_on_two_cards(two_cards):
+    """Rank 0 on cuda:0, rank 1 on cuda:1: the gathered image is rt_frame's
+    on cuda:0, bit for bit."""
+    s0, s1 = _two_rank_fused_dp(256, 192)
+    assert [s0["device"], s1["device"]] == ["cuda:0", "cuda:1"]
+    assert s0["sha256"] == s1["sha256"] == _rt_frame_sha(256, 192,
+                                                         two_cards[0])
+    assert s0["matches_single_device"] and s1["matches_single_device"]

@@ -120,7 +120,13 @@ Phases (any failure raises; nothing is caught):
      rank that exits non-zero or hangs fails the run; each rank's wall
      time and its split (group start, scene upload, frames, collectives)
      are logged. Two ranks time-share one card: the times are the cost of
-     processes and gloo, not scaling.
+     processes and gloo, not scaling;
+ 11. the port's benchmark (``python -m refraction_tpu_torch.bench``) in a
+     process of its own, in full mode with a budget for every extra: it
+     must exit 0 within BENCH_TIMEOUT; its last line must hold every key
+     of BENCH_KEYS and no ``*_error``, a passed gate for each of its six
+     cells, in each timed regime as many frame-kernel launches as frames,
+     and build80k's cold build in a directory other than ``_build/``.
 
 The line before the last is a JSON object with each kernel's launches in
 its main-path phase (5 for the frame kernel, 9 for its pixel-DP entry
@@ -134,8 +140,10 @@ any of these functions; the stall entry's bound is the sum of the six
 variants' bounds, whose latency floor is a count of dependent operations
 and so reported on the operations side; phase 10's launches are made in
 the ranks' processes, checked from their JSON lines and not added here;
-its seconds are under ``distributed_s``); the last line is ``{"ok": true, "device":
-{...}}``. Without CUDA it exits non-zero and prints no result.
+its seconds are under ``distributed_s``; phase 11's bench line is under
+``bench``, its launches made in its own process); the last line is
+``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -171,6 +179,26 @@ LARGE_STRIDE = 64       # plain version on every 64th pixel of the large frame
 DIST_FRAMES = 8
 DIST_RTOL = 1e-6
 DIST_TIMEOUT = 240      # seconds for a pair of ranks
+BENCH_TIMEOUT = 600     # seconds for phase 11's bench run
+# Phase 11: the cells the bench gates, the regimes it counts launches in,
+# and the keys its last line must hold.
+BENCH_CELLS = ("headline", "ref_demo", "ott", "config5", "spp4", "build80k")
+BENCH_REGIMES = ("latency", "loop", "device_ms", "batched",
+                 "ref_demo_device_ms", "ott_device_ms", "config5_device_ms",
+                 "spp4_loop", "build80k_first_frame")
+BENCH_KEYS = (
+    "metric", "value", "unit", "frame_ms", "frame_latency_ms",
+    "loop_frame_ms", "batched_frame_ms", "device_ms", "mrays_dense",
+    "mrays_live", "mrays_note", "dense_rays_per_frame", "live_rays_per_frame",
+    "tris", "backend", "device", "card", "library", "build_s", "build_cached",
+    "first_frame_s", "scene_s", "gate", "launches", "headline_scene",
+    "ref_demo_device_ms", "ref_demo_fps_device", "ref_demo_note",
+    "ref_demo_scene", "ott_device_ms", "ott_fps_device", "ott_note",
+    "ott_scene", "config5_device_ms", "config5_fps_device", "config5_note",
+    "config5_scene", "spp4_frame_ms", "spp4_live_rays_per_frame",
+    "spp4_mrays_live", "spp4_rays_vs_spp1", "spp4_scene", "build_cold_s",
+    "build80k_library", "build80k_cached", "first_frame80k_s",
+    "compile80k_tris", "build80k_scene")
 
 
 def log(msg: str) -> None:
@@ -329,6 +357,66 @@ def run_ranks(workdir: str, args, out: str | None = None) -> list[dict]:
     return results
 
 
+def run_bench(workdir: str) -> tuple[dict, float]:
+    """``python -m refraction_tpu_torch.bench`` in full mode with a budget
+    for every extra (RRT_BENCH_BUDGET_S 1800), stdout and stderr to files
+    in ``workdir``. A run that exits non-zero or outlasts BENCH_TIMEOUT
+    (it is then killed) fails the smoke. Returns its last line, parsed,
+    and its wall seconds."""
+    os.makedirs(workdir, exist_ok=True)
+    env = dict(os.environ, RRT_BENCH_BUDGET_S="1800")
+    env.pop("RRT_BENCH_SMALL", None)
+    out_path = os.path.join(workdir, "bench.out")
+    err_path = os.path.join(workdir, "bench.err")
+    t0 = time.perf_counter()
+    with open(out_path, "w") as fo, open(err_path, "w") as fe:
+        proc = subprocess.run(
+            [sys.executable, "-m", "refraction_tpu_torch.bench"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=fo, stderr=fe, timeout=BENCH_TIMEOUT, check=False)
+    wall = time.perf_counter() - t0
+    with open(out_path) as f:
+        lines = f.read().splitlines()
+    if proc.returncode != 0 or not lines:
+        with open(err_path) as f:
+            err = f.read()[-3000:]
+        raise AssertionError(f"bench exited {proc.returncode}:\n{err}\n"
+                             f"{lines[-1] if lines else '(no output)'}")
+    return json.loads(lines[-1]), wall
+
+
+def bench_faults(res: dict, card: str, kind: str, build_dir: str) -> dict:
+    """What is wrong with the bench's last line ``res``, by check (every
+    value empty or False when nothing is): keys missing from BENCH_KEYS,
+    ``*_error`` fields, cells whose gate did not pass, regimes whose
+    frame-kernel launches differ from their frames, a build80k library
+    that was cached or lies in ``build_dir`` (where the bench's own must
+    lie), a device or card line other than this card's, and times that
+    are not positive (``build_s`` is 0.0 for a library already built)."""
+    gates = res.get("gate", {})
+    counts = res.get("launches", {})
+    built_in = {k: os.path.dirname(res.get(k) or "")
+                for k in ("library", "build80k_library")}
+    return {
+        "missing keys": [k for k in BENCH_KEYS if k not in res],
+        "errors": {k: v for k, v in res.items() if k.endswith("_error")},
+        "gates not ok": [c for c in BENCH_CELLS
+                         if not gates.get(c, {}).get("ok")],
+        "launches != frames": {
+            r: counts.get(r) for r in BENCH_REGIMES
+            if not counts.get(r)
+            or counts[r]["fused_radiance"] != counts[r]["frames"]},
+        "build80k not a cold build elsewhere": (
+            built_in["build80k_library"] in ("", build_dir)
+            or built_in["library"] != build_dir
+            or res.get("build80k_cached") is not False),
+        "device or card": res.get("device") != kind or res.get("card") != card,
+        "non-positive times": [
+            k for k in BENCH_KEYS if k.endswith(("_ms", "_s", "value"))
+            and k != "build_s" and k in res
+            and not (isinstance(res[k], (int, float)) and res[k] > 0)]}
+
+
 def main() -> int:
     import torch
 
@@ -406,11 +494,11 @@ def main() -> int:
 
     # --- phase 1: build -------------------------------------------------
     t0 = time.perf_counter()
-    _build.library()
-    log(f"phase 1: built {os.path.basename(_build.BuildInfo.path)} in "
-        f"{_build.BuildInfo.seconds:.1f} s nvcc "
+    built = _build.loaded_build()
+    log(f"phase 1: built {os.path.basename(built.path)} in "
+        f"{built.seconds:.1f} s nvcc "
         f"({time.perf_counter() - t0:.1f} s with load)")
-    for line in _build.BuildInfo.log.splitlines():
+    for line in built.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
 
@@ -641,7 +729,7 @@ def main() -> int:
     diff = image_diff(np, img_k, img_p)
     check_image("demo 1024x768 kernel vs plain", diff)
     frame_err = diff["max_abs_err"]
-    kernel_lines = _build.BuildInfo.log.splitlines()
+    kernel_lines = built.log.splitlines()
     for i, line in enumerate(kernel_lines):
         if "Compiling entry function" in line and "rt_frame_kernel" in line:
             walk = "supers" if "ILi1E" in line else "flat"
@@ -1716,6 +1804,39 @@ def main() -> int:
                             for r in runs_m]
                      for mode, runs_m in (("frames", frames_m),
                                           ("fused_dp", dp_m))}
+
+    # --- phase 11: the port's benchmark ----------------------------------
+    log("phase 11: python -m refraction_tpu_torch.bench (every cell, "
+        "RRT_BENCH_BUDGET_S 1800)")
+    bench_res, bench_s = run_bench(os.path.join(tmp, "bench"))
+    gates = bench_res.get("gate", {})
+    counts = bench_res.get("launches", {})
+    bench_bad = bench_faults(bench_res, card, torch.cuda.get_device_name(0),
+                             _build.BUILD_DIR)
+    for cell in BENCH_CELLS:
+        g = gates.get(cell, {})
+        log(f"  gate {cell}: rmse {g.get('rmse', float('nan')):.3e}, share "
+            f"off {g.get('share_off', float('nan')):.2e} on "
+            f"{g.get('pixels')} pixels (every {g.get('stride')}th), ok "
+            f"{g.get('ok')}; scene {bench_res.get(cell + '_scene')}")
+    log(f"  headline {bench_res.get('metric')}: frame "
+        f"{bench_res.get('frame_ms')} ms (latency {bench_res.get('frame_latency_ms')}, loop "
+        f"{bench_res.get('loop_frame_ms')}, batched "
+        f"{bench_res.get('batched_frame_ms')}), device "
+        f"{bench_res.get('device_ms')} ms, live Mrays/s "
+        f"{bench_res.get('mrays_live')} [{card}]")
+    log(f"  cells, device ms: ref_demo {bench_res.get('ref_demo_device_ms')},"
+        f" ott {bench_res.get('ott_device_ms')}, config5 "
+        f"{bench_res.get('config5_device_ms')}; spp4 frame "
+        f"{bench_res.get('spp4_frame_ms')} ms; build "
+        f"{bench_res.get('build_s')} s (cached {bench_res.get('build_cached')}), cold build "
+        f"{bench_res.get('build_cold_s')} s in "
+        f"{os.path.dirname(bench_res.get('build80k_library') or '')},"
+        f" first 80k frame "
+        f"{bench_res.get('first_frame80k_s')} s [{card}]")
+    log(f"  launches per regime {counts}; bench wall {bench_s:.1f} s")
+    if any(bench_bad.values()):
+        raise AssertionError(f"phase 11: {bench_bad}")
     shutil.rmtree(tmp, ignore_errors=True)
 
     mt_r, vt_words = int(mt_a[3].numel()), {"mt": inp.tri_flat.size,
@@ -1867,6 +1988,7 @@ def main() -> int:
                       "frame_ms_large": large_ms, "frame_cells": frame_cells,
                       "wavefront": wave, "pixel_dp": pixel_dp,
                       "lbvh_ms": lbvh_ms, "distributed_s": distributed_m,
+                      "bench": bench_res, "bench_s": bench_s,
                       "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,11 +3,12 @@
 ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per
 source, all started together, and links the objects into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds). The library lands in ``refraction_tpu_torch/_build/`` under a
-name that carries a hash of the sources and flags, so an edit rebuilds
-and an unchanged tree reuses the file. A missing ``nvcc`` or a failed
-compile raises with the compiler's output; nothing falls back. `launch`
-calls an entry point on the device of the wrapper's tensors.
+seconds). The library lands in ``refraction_tpu_torch/_build/`` (or the
+directory `build` is given) under a name that carries a hash of the
+sources and flags, so an edit rebuilds and an unchanged tree reuses the
+file. A missing ``nvcc`` or a failed compile raises with the compiler's
+output; nothing falls back. `launch` calls an entry point on the device
+of the wrapper's tensors.
 
 ``-fmad=false`` keeps multiply-adds unfused, so Möller–Trumbore and the
 shading round like numpy float32 and closest-hit winners match the
@@ -25,6 +26,7 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -86,17 +88,20 @@ SIGNATURES = {
 }
 
 
-class BuildInfo:
-    """What the last build did: the library path, the seconds it took
-    (0.0 when a built library was reused) and nvcc's output."""
+class BuildInfo(NamedTuple):
+    """What one build did: the library's path, the seconds nvcc and the
+    link took (0.0 when the hashed library already existed: ``cached``)
+    and nvcc's output."""
 
-    path = ""
-    seconds = 0.0
-    log = ""
+    path: str
+    seconds: float
+    log: str
+    cached: bool
 
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+_LOADED: BuildInfo | None = None  # the build of _LIB
 
 
 def find_nvcc() -> str:
@@ -123,9 +128,10 @@ def _sources():
     return cu, deps
 
 
-def build() -> str:
-    """Compile ``csrc/*.cu`` into the hashed library unless it exists;
-    returns its path."""
+def build(build_dir: str = BUILD_DIR) -> BuildInfo:
+    """Compile ``csrc/*.cu`` into the hashed library in ``build_dir``
+    unless it is there already. Loads nothing: `library` loads the one
+    in ``BUILD_DIR``."""
     nvcc = find_nvcc()
     cu, deps = _sources()
     h = hashlib.sha256()
@@ -134,12 +140,10 @@ def build() -> str:
         with open(p, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"librt_kernels_{h.hexdigest()[:16]}.so")
-    BuildInfo.path = out
+    out = os.path.join(build_dir, f"librt_kernels_{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
-        BuildInfo.seconds = 0.0
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
+        return BuildInfo(out, 0.0, "", True)
+    os.makedirs(build_dir, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     objs = [f"{tmp}.{os.path.basename(c)}.o" for c in cu]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, c] for o, c in zip(objs, cu)]
@@ -170,27 +174,34 @@ def build() -> str:
         for o in objs:
             if os.path.exists(o):
                 os.remove(o)
-    BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.log = "".join(logs)
+    seconds = time.perf_counter() - t0
     os.replace(tmp, out)
-    return out
+    return BuildInfo(out, seconds, "".join(logs), False)
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use, with every entry
     point's ``argtypes`` declared."""
-    global _LIB
+    global _LIB, _LOADED
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(build())
+            info = build()
+            lib = ctypes.CDLL(info.path)
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             lib.rt_error_string.argtypes = [ctypes.c_int]
             lib.rt_error_string.restype = ctypes.c_char_p
-            _LIB = lib
+            _LIB, _LOADED = lib, info
         return _LIB
+
+
+def loaded_build() -> BuildInfo:
+    """The build of the library `library` loaded (built and loaded here
+    on first use)."""
+    library()
+    return _LOADED
 
 
 def check(err: int, name: str) -> None:

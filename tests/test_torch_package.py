@@ -68,10 +68,11 @@ mods = [m.name for m in pkgutil.walk_packages(refraction_tpu_torch.__path__,
                                               "refraction_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-need = {"run", "viewer", "profile_rounds", "mxu_mt_bench", "stallbench",
-        "config", "camera", "scene", "io.objmesh", "io.texture", "io.hdr",
-        "io.png", "io.mtl", "io.primitives", "bvh.morton", "bvh.clusters",
-        "bvh.lbvh", "parallel.sharding", "utils.stats"}
+need = {"run", "bench", "viewer", "profile_rounds", "mxu_mt_bench",
+        "stallbench", "config", "camera", "scene", "io.objmesh",
+        "io.texture", "io.hdr", "io.png", "io.mtl", "io.primitives",
+        "bvh.morton", "bvh.clusters", "bvh.lbvh", "parallel.sharding",
+        "utils.stats"}
 missing = {"refraction_tpu_torch." + m for m in need} - set(mods)
 assert not missing, missing
 # The CLI on the CPU at a tiny size, from files the port writes itself.

@@ -33,20 +33,47 @@ prints one JSON line for the package it imports:
   replaced by a no-op;
 - the card line (nvidia-smi name and power limit).
 
+The frame kernel's forms and tiles, in place of that breakdown:
+
+    python -m refraction_tpu_torch.frame_times --cell large --forms --tiles
+
+- ``--cell NAME`` takes one of the procedural cells of `CELLS` (the
+  stand-ins chip_smoke.py and bench.py render: demo, demo_spp4, large,
+  headline, ott, config5, spp4) instead of ``--scene`` and the shape
+  flags;
+- ``--forms`` times every form of the kernel the package has
+  (``kernels.framekernel.FORM_LANES``: ``thread``, `fused_radiance`, one
+  thread a pixel; ``group8`` and ``group4``, `fused_radiance_group` with 8
+  and 4 lanes a ray; a package without it, ``thread`` alone) in turns:
+  ROUNDS rounds, the forms in forward then reverse order, each the card's
+  mean ms over LAUNCHES launches behind a spin kernel (`timing.card_ms`).
+  Per form: the times, their median, its share of the frame's bound
+  (`bounds.frame_bound` over `render.frame_traversal_work`), whether its
+  image equals `fused_radiance`'s bit for bit (and the sha256), and its
+  occupancy (`framekernel.frame_occupancy`, where the package has it);
+- ``--tiles`` launches each form's pixel-DP entry (`frame_tiles`,
+  `frame_tiles_group`) once for each 32x32 tile of the frame alone
+  (``n_local`` 1; the card's time, `timing.device_ms`; the 8 slowest take
+  the best of 5) and prints the slowest tile, its id and the median
+  tile.
+
 It uses only the package's long-standing entry points (``scene.load_scene``,
-``scene.scene_from_jax``, ``kernels.framekernel.build_scalars`` /
-``fused_radiance``, ``camera.generate_rays``,
-``integrator.render_pixels_mega``, ``run.to_u8`` / ``write_png`` /
-``main`` and its per-frame log line) and the
-measurement helpers of ``timing.py``, so the same two files, copied beside
-another checkout of the package, time that checkout's kernels:
-comparisons run both in one call, in turns. ``--device cuda`` only:
-there is no CPU path.
+``scene.build_scene``, ``scene.scene_from_jax``,
+``kernels.framekernel.build_scalars`` / ``fused_radiance`` /
+``frame_tiles``, ``camera.generate_rays``,
+``integrator.render_pixels_mega``, ``render.frame_traversal_work``,
+``bounds.frame_bound``, ``run.to_u8`` / ``write_png`` / ``main`` and its
+per-frame log line) and the measurement helpers of ``timing.py``, so the
+same two files, copied beside another checkout of the package, time that
+checkout's kernels: comparisons run both in one call, in turns.
+``--device cuda`` only: there is no CPU path.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import hashlib
 import json
 import logging
 import os
@@ -57,19 +84,35 @@ import time
 import numpy as np
 import torch
 
-from refraction_tpu_torch import run
+from refraction_tpu_torch import RenderConfig, bounds, run
 from refraction_tpu_torch.camera import generate_rays, orbit_camera
 from refraction_tpu_torch.integrator import render_pixels_mega
-from refraction_tpu_torch.kernels.framekernel import build_scalars, fused_radiance
-from refraction_tpu_torch.render import sample_offsets
+from refraction_tpu_torch.io.primitives import (
+    make_gradient_envmap, make_icosphere)
+from refraction_tpu_torch.kernels import framekernel
+from refraction_tpu_torch.kernels.framekernel import (
+    build_scalars, frame_tiles, fused_radiance, tile_grid)
+from refraction_tpu_torch.render import frame_traversal_work, sample_offsets
 from refraction_tpu_torch.run import build_config, to_u8, write_png
-from refraction_tpu_torch.scene import load_scene, scene_from_jax
-from refraction_tpu_torch.timing import card_line, device_ms, require_device
+from refraction_tpu_torch.scene import (
+    auto_cluster_size, build_scene, load_scene, scene_from_jax)
+from refraction_tpu_torch.timing import (
+    card_line, card_ms, device_ms, require_device)
 
 ROUNDS, LAUNCHES = 5, 20
 WARM_FRAMES, FRAMES = 3, 30
 SHAPE_FLAGS = ("--scene", "--envmap", "--width", "--height", "--bounces",
                "--spp")
+# --cell: make_icosphere(subdiv, 1.2) at auto_cluster_size, a 1024x2048
+# gradient map; (subdiv, width, height, refraction cap, spp), the
+# reflection cap RenderConfig's 2. demo, demo_spp4 and large are
+# chip_smoke.py's phase 5 cells (there loaded from OBJ files); headline,
+# ott, config5 and spp4 the bench's stand-ins.
+CELLS = {"demo": (3, 1024, 768, 5, 1), "demo_spp4": (3, 1024, 768, 5, 4),
+         "large": (6, 1920, 1080, 4, 1), "headline": (3, 1920, 1080, 4, 1),
+         "ott": (5, 1920, 1080, 5, 1), "config5": (5, 1920, 1080, 5, 4),
+         "spp4": (3, 1920, 1080, 4, 4)}
+SLOW_TILES, SLOW_REPEATS = 8, 5
 
 
 def _pct(xs, q):
@@ -167,6 +210,79 @@ def cli_loop(args, png_dir: str, write: bool) -> dict:
             "p90": _pct(gaps, 90), "frames": len(stamps)}
 
 
+def cell_scene(name: str, device) -> tuple:
+    """The scene and config of the procedural cell ``name`` (`CELLS`)."""
+    subdiv, width, height, bounces, spp = CELLS[name]
+    mesh = make_icosphere(subdiv, 1.2)
+    host = build_scene(mesh, make_gradient_envmap(1024, 2048),
+                       auto_cluster_size(mesh.num_tris))[0]
+    cfg = RenderConfig(width=width, height=height,
+                       max_refract_depth=bounces, spp=spp)
+    return scene_from_jax(host, device), cfg
+
+
+def frame_forms() -> dict:
+    """The package's forms of the kernel: name -> (full frame, pixel-DP
+    entry), each called as `fused_radiance` / `frame_tiles` are; the
+    one-thread form alone where the package has no `FORM_LANES`."""
+    lanes = getattr(framekernel, "FORM_LANES", {"thread": 1})
+    return {name: (fused_radiance, frame_tiles) if g == 1 else
+            (functools.partial(framekernel.fused_radiance_group, lanes=g),
+             functools.partial(framekernel.frame_tiles_group, lanes=g))
+            for name, g in lanes.items()}
+
+
+def time_forms(scene, cfg, scalars, device) -> dict:
+    """Each form's card ms in turns, its image against fused_radiance's,
+    its share of the frame's bound and its occupancy (see the module
+    docstring)."""
+    forms = frame_forms()
+    ref = fused_radiance(scene, scalars, cfg)
+    out = {}
+    for name, (fn, _) in forms.items():
+        img = fn(scene, scalars, cfg)
+        torch.cuda.synchronize(device)
+        out[name] = {"ms": [], "bit_equal": bool(torch.equal(img, ref)),
+                     "sha256": hashlib.sha256(
+                         img.cpu().numpy().tobytes()).hexdigest()}
+    names = list(forms)
+    for r in range(ROUNDS):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            fn = forms[name][0]
+            out[name]["ms"].append(
+                card_ms(lambda: fn(scene, scalars, cfg), LAUNCHES, device))
+    b = bounds.frame_bound(scene, cfg, frame_traversal_work(
+        scene, cfg, orbit_camera(0.01, cfg), device))
+    occupancy = getattr(framekernel, "frame_occupancy", None)
+    walk = framekernel.walk_of(scene)
+    for name, row in out.items():
+        row["median_ms"] = statistics.median(row["ms"])
+        row["share_of_bound"] = b["bound_ms"] / row["median_ms"]
+        if occupancy is not None:
+            row["occupancy"] = occupancy(name, walk, device)
+    return {"forms": out, "walk": walk,
+            "bound": {k: b[k] for k in ("bound_ms", "bound_by", "ops",
+                                        "bytes", "work")}}
+
+
+def tile_times(tiles_fn, scene, cfg, scalars, device) -> dict:
+    """One-tile launches of the pixel-DP entry ``tiles_fn`` over the
+    frame's tiles: the slowest (its id) and the median, the card's ms."""
+    n_tiles = tile_grid(cfg)[1]
+
+    def one_tile(t):
+        return device_ms(lambda: tiles_fn(scene, scalars, cfg, n_tiles, t, 1,
+                                          n_tiles), device)
+
+    one_tile(0)
+    one = {t: one_tile(t) for t in range(n_tiles)}
+    for t in sorted(one, key=one.get)[-SLOW_TILES:]:
+        one[t] = min(one[t], *(one_tile(t) for _ in range(SLOW_REPEATS - 1)))
+    slow = max(one, key=one.get)
+    return {"tiles": n_tiles, "slowest_ms": one[slow], "slowest_tile": slow,
+            "median_ms": float(np.median(list(one.values())))}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         description=__doc__,
@@ -175,13 +291,36 @@ def main(argv=None) -> int:
         p.add_argument(flag)
     for flag in ("--width", "--height", "--bounces", "--spp"):
         p.add_argument(flag, type=int)
+    p.add_argument("--cell", choices=sorted(CELLS),
+                   help="a procedural cell instead of --scene and the shape")
+    p.add_argument("--forms", action="store_true",
+                   help="time the frame kernel's forms in turns")
+    p.add_argument("--tiles", action="store_true",
+                   help="one-tile launches: the slowest and median tile")
     p.add_argument("--label", default="", help="name printed with the result")
     args = p.parse_args(argv)
     device = require_device("cuda")
-    cfg = build_config(args)
-    scene = scene_from_jax(load_scene(cfg)[0], device)
+    if args.cell:
+        scene, cfg = cell_scene(args.cell, device)
+    else:
+        cfg = build_config(args)
+        scene = scene_from_jax(load_scene(cfg)[0], device)
     scalars = build_scalars(orbit_camera(0.01, cfg), cfg,
                             sample_offsets(cfg.spp), device)
+    if args.forms or args.tiles:
+        res = {"label": args.label, "cell": args.cell,
+               "shape": [cfg.width, cfg.height, cfg.max_refract_depth,
+                         cfg.max_reflect_depth, cfg.spp],
+               "tris": scene.num_tris, "clusters": scene.num_clusters}
+        if args.forms:
+            res.update(time_forms(scene, cfg, scalars, device))
+        if args.tiles:
+            res["one_tile"] = {
+                name: tile_times(tiles_fn, scene, cfg, scalars, device)
+                for name, (_, tiles_fn) in frame_forms().items()}
+        res["card"] = card_line(device)
+        print(json.dumps(res), flush=True)
+        return 0
     ms = back_to_back_ms(lambda: fused_radiance(scene, scalars, cfg))
     o, d = generate_rays(orbit_camera(0.01, cfg), cfg.width, cfg.height,
                          device)

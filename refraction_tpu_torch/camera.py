@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from refraction_tpu_torch.config import RenderConfig
+from refraction_tpu_torch.tracing import span
 
 
 def perspective_fov_lh(fov_y: float, aspect: float, zn: float, zf: float) -> np.ndarray:
@@ -83,21 +84,22 @@ class CameraFrame:
 
 def orbit_camera(angle: float, cfg: RenderConfig) -> CameraFrame:
     """The reference's orbiting camera at a given angle (RefractionDemo.cpp:559-565)."""
-    proj = perspective_fov_lh(cfg.fov_y_rad, cfg.resolved_aspect, cfg.z_near, cfg.z_far)
-    camera_loc = np.array(
-        [cfg.orbit_radius * np.cos(angle), 0.0, cfg.orbit_radius * np.sin(angle), 1.0]
-    )
-    world = translation(camera_loc)
-    view = look_at_lh(
-        np.array([np.cos(-angle), 0.0, np.sin(-angle)]),
-        np.zeros(3),
-        np.array([0.0, 1.0, 0.0]),
-    )
-    a = proj @ world @ view
-    return CameraFrame(
-        origin=camera_loc[:3].astype(np.float32),
-        proj_inv=np.linalg.inv(a).astype(np.float32),
-    )
+    with span("rt.pose"):
+        proj = perspective_fov_lh(cfg.fov_y_rad, cfg.resolved_aspect, cfg.z_near, cfg.z_far)
+        camera_loc = np.array(
+            [cfg.orbit_radius * np.cos(angle), 0.0, cfg.orbit_radius * np.sin(angle), 1.0]
+        )
+        world = translation(camera_loc)
+        view = look_at_lh(
+            np.array([np.cos(-angle), 0.0, np.sin(-angle)]),
+            np.zeros(3),
+            np.array([0.0, 1.0, 0.0]),
+        )
+        a = proj @ world @ view
+        return CameraFrame(
+            origin=camera_loc[:3].astype(np.float32),
+            proj_inv=np.linalg.inv(a).astype(np.float32),
+        )
 
 
 def generate_rays(frame: CameraFrame, width: int, height: int,

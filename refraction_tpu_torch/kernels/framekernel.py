@@ -53,6 +53,7 @@ from refraction_tpu_torch.kernels.envmap import (
 )
 from refraction_tpu_torch.kernels.intersect import check_scene_tables
 from refraction_tpu_torch.ops.backends import torch_intersect
+from refraction_tpu_torch.tracing import span
 
 # Scalar vector layout (as refraction_tpu/kernels/framekernel.py:96-103):
 # [0:9] proj_inv rows 0..2 of columns (0, 1, 3) | [9:12] camera origin |
@@ -87,7 +88,9 @@ def build_scalars(frame: CameraFrame, cfg: RenderConfig, offsets: np.ndarray,
             cfg.ior, cfg.fresnel_r0]
     for k in range(offsets.shape[0]):
         vals += [float(offsets[k, 0]), float(offsets[k, 1])]
-    return torch.from_numpy(np.asarray(vals, np.float32)).to(device)
+    host = torch.from_numpy(np.asarray(vals, np.float32))
+    with span("rt.upload"):
+        return host.to(device)
 
 
 def _frame_from_scalars(sc: np.ndarray) -> CameraFrame:
@@ -157,11 +160,12 @@ def _radiance(wrapper, entry: str, lead: tuple, scene, scalars,
     if scalars.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device "
                          f"{scalars.device}")
-    _check_frame_args(scene, scalars, cfg)
-    out = torch.empty(cfg.height, cfg.width, 3, dtype=torch.float32,
-                      device=scalars.device)
-    launch(entry, scalars.device, *lead,
-           *_frame_args(scene, scalars, cfg, out))
+    with span("rt.launch"):
+        _check_frame_args(scene, scalars, cfg)
+        out = torch.empty(cfg.height, cfg.width, 3, dtype=torch.float32,
+                          device=scalars.device)
+        launch(entry, scalars.device, *lead,
+               *_frame_args(scene, scalars, cfg, out))
     wrapper.launches += 1
     return out
 
@@ -342,13 +346,14 @@ def _tiles(wrapper, entry: str, lead: tuple, scene, scalars, cfg,
     if scalars.device.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device "
                          f"{scalars.device}")
-    _check_frame_args(scene, scalars, cfg)
-    _check_tiles(cfg, tile_stride, tile_base, n_local, n_tiles_real)
-    out = torch.empty(n_local, TILE, TILE, 3, dtype=torch.float32,
-                      device=scalars.device)
-    launch(entry, scalars.device, *lead,
-           *_frame_args(scene, scalars, cfg, out), tile_stride, tile_base,
-           n_local, n_tiles_real)
+    with span("rt.launch"):
+        _check_frame_args(scene, scalars, cfg)
+        _check_tiles(cfg, tile_stride, tile_base, n_local, n_tiles_real)
+        out = torch.empty(n_local, TILE, TILE, 3, dtype=torch.float32,
+                          device=scalars.device)
+        launch(entry, scalars.device, *lead,
+               *_frame_args(scene, scalars, cfg, out), tile_stride,
+               tile_base, n_local, n_tiles_real)
     wrapper.launches += 1
     return out
 

@@ -46,6 +46,7 @@ from refraction_tpu_torch.kernels.intersect import cull_code
 from refraction_tpu_torch.ops.backends import get_backend
 from refraction_tpu_torch.ops.intersect import traversal_work
 from refraction_tpu_torch.scene import TorchScene
+from refraction_tpu_torch.tracing import span
 
 
 def sample_offsets(spp: int) -> np.ndarray:
@@ -236,7 +237,10 @@ class Accumulator:
         self.count = 0
 
     def add(self, img: np.ndarray) -> None:
-        self.sum += np.asarray(img, np.float64)
+        with span("rt.fold.widen"):
+            wide = np.asarray(img, np.float64)
+        with span("rt.fold.add"):
+            self.sum += wide
         self.count += 1
 
     @property

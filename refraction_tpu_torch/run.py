@@ -14,10 +14,13 @@ There is no fallback: ``--device cuda`` without CUDA is an error.
   ``auto/xla/pallas``; ``cfg.backend`` keeps those and is not read.
 - ``--baseline N`` starts from the staged BASELINE.json config N
   (`config.baseline_config`); the other flags override it.
-- ``--profile DIR`` renders one warm frame, then one frame under
-  ``torch.profiler`` (host activity, and the card's on CUDA), written to
-  ``DIR/frame_trace.json`` as a Chrome trace; then the loop runs as usual.
-  On CUDA a trace without device activity raises instead of being written.
+- ``--profile DIR`` runs one warm iteration of the frame loop, then one
+  under ``torch.profiler`` (host activity, and the card's on CUDA): the
+  pose, the render call, the copies to the host and the wait for them,
+  and with ``--accumulate`` the fold, each in its ``rt.*`` span
+  (`tracing`). It is written to ``DIR/frame_trace.json`` as a Chrome
+  trace; then the loop runs as usual. On CUDA a trace without device
+  activity raises instead of being written.
 - ``--instances SPEC.json`` renders N placed meshes (TLAS with N
   instances, `scene.load_instanced`); mask-0 instances are
   dropped at build, and the frame kernel serves the reference's constant
@@ -90,6 +93,7 @@ from refraction_tpu_torch.render import (
 )
 from refraction_tpu_torch.scene import load_instanced, load_scene, scene_from_jax
 from refraction_tpu_torch.timing import require_device
+from refraction_tpu_torch.tracing import span
 from refraction_tpu_torch.utils.stats import FrameStats, log, setup_logging
 from refraction_tpu_torch.viewer import FrameServer
 
@@ -98,10 +102,11 @@ def to_u8(img: torch.Tensor, linear: bool = False) -> torch.Tensor:
     """Display transform on the image's device: clamp, gamma 2.2 unless
     ``linear`` (the reference's clamp-only UNORM present), then u8 — a
     quarter of the float image's bytes cross to the host."""
-    disp = torch.clamp(img, 0.0, 1.0)
-    if not linear:
-        disp = disp ** float(np.float32(1.0 / 2.2))
-    return (disp * 255.0 + 0.5).to(torch.uint8)
+    with span("rt.to_u8"):
+        disp = torch.clamp(img, 0.0, 1.0)
+        if not linear:
+            disp = disp ** float(np.float32(1.0 / 2.2))
+        return (disp * 255.0 + 0.5).to(torch.uint8)
 
 
 class HostCopies:
@@ -149,26 +154,34 @@ class HostCopies:
         return out[0], out[1], done
 
 
-def profile_frame(renderer, scene, frame, device: torch.device,
-                  out_dir: str) -> str:
-    """One warm frame, then one frame under ``torch.profiler`` (host
-    activity, and the card's on CUDA), exported as a Chrome trace to
-    ``out_dir/frame_trace.json``; returns its path. On CUDA a trace that
-    recorded no device activity raises rather than being written: a
-    host-only trace would not show the frame's kernels."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+def profile_frame(renderer, scene, cfg: RenderConfig, angle: float,
+                  copies: HostCopies, device: torch.device, out_dir: str,
+                  acc: Accumulator | None = None) -> str:
+    """One warm iteration of the frame loop, then one under
+    ``torch.profiler`` (host activity, and the card's on CUDA), exported
+    as a Chrome trace to ``out_dir/frame_trace.json``; returns its path.
+    An iteration is the loop's: the pose at ``angle``, the render call,
+    ``copies.enqueue`` and the wait for its event, then, given ``acc``,
+    the fold of the radiance into it; the trace holds the frame path's
+    `tracing` spans (``rt.*``). On CUDA a trace that recorded no device
+    activity raises rather than being written: a host-only trace would
+    not show the frame's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def iteration():
+        img = renderer(scene, orbit_camera(angle, cfg))
+        _, radiance, done = copies.enqueue(img)
+        if done is not None:
+            done.synchronize()
+        if acc is not None:
+            acc.add(radiance)
 
     cuda = device.type == "cuda"
-    renderer(scene, frame)
-    if cuda:
-        torch.cuda.synchronize(device)
+    iteration()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
                                            if cuda else [])
     with profile(activities=activities) as prof:
-        with record_function("render_frame"):
-            renderer(scene, frame)
-        if cuda:
-            torch.cuda.synchronize(device)
+        iteration()
     if cuda and not any(e.device_type == torch.autograd.DeviceType.CUDA
                         for e in prof.events()):
         raise RuntimeError("--profile: torch.profiler recorded no device "
@@ -245,8 +258,9 @@ def parse_args(argv=None):
     p.add_argument("--baseline", type=int, choices=[1, 2, 3, 4, 5],
                    help="start from a BASELINE.json staged config")
     p.add_argument("--profile", metavar="DIR",
-                   help="write a torch.profiler trace of one frame (after"
-                        " a warm frame) to DIR/frame_trace.json")
+                   help="write a torch.profiler trace of one iteration of"
+                        " the frame loop (after a warm one) to"
+                        " DIR/frame_trace.json")
     p.add_argument("--frames", type=int, default=1,
                    help="frames to render; 0 = endless orbit, ended by"
                         " SIGINT (with --serve)")
@@ -346,10 +360,6 @@ def main(argv=None) -> int:
             raise ValueError(f"--resume {args.resume}: state is "
                              f"{acc.sum.shape[:2]}, frames are "
                              f"{(cfg.height, cfg.width)}")
-    if args.profile:
-        path = profile_frame(renderer, scene, orbit_camera(args.angle, cfg),
-                             device, args.profile)
-        log.info("profiler trace written to %s", path)
     serve = None
     if args.serve is not None:
         serve = FrameServer(port=args.serve)
@@ -363,6 +373,12 @@ def main(argv=None) -> int:
     copies = HostCopies(device, u8=acc is None or serve is not None,
                         radiance=acc is not None or (files and args.raw),
                         linear=args.linear)
+    if args.profile:
+        # The profiled iteration folds into an accumulator of its own.
+        path = profile_frame(
+            renderer, scene, cfg, args.angle, copies, device, args.profile,
+            None if acc is None else Accumulator(cfg.height, cfg.width))
+        log.info("profiler trace written to %s", path)
     stats = FrameStats()
     timed = device.type == "cuda"
 
@@ -377,7 +393,6 @@ def main(argv=None) -> int:
             done.synchronize()
         if acc is not None:
             acc.add(radiance)
-        # The frame kernel counts no rays: no live ray rate is logged.
         stats.stop()
         if serve is not None:  # published before its log line
             serve.publish(u8, {"frame": i, "fps": round(stats.fps, 2)})

@@ -203,13 +203,29 @@ def test_cli_profile_on_cpu_writes_a_trace_of_the_frame(ball, tmp_path,
                               str(prof), "--backend", "cuda")) == 0
     trace = json.loads((prof / "frame_trace.json").read_text())["traceEvents"]
     names = {e.get("name") for e in trace}
-    # The frame's span and the eager integrator's ops inside it.
-    assert "render_frame" in names
+    # One loop iteration's spans (the launch span is the CUDA branch's;
+    # the fold's only with --accumulate) and the eager integrator's ops.
+    assert {"rt.pose", "rt.upload", "rt.to_u8"} <= names
+    assert not names & {"rt.launch", "rt.fold.widen", "rt.fold.add"}
     assert {"aten::acos", "aten::atan2"} <= names
     assert any("profiler trace written to" in r.getMessage()
                for r in caplog.records)
     # Then the loop ran as usual.
     assert (tmp_path / "f.png").exists()
+
+
+def test_cli_profile_with_accumulate_traces_the_fold_apart(ball, tmp_path):
+    """With --accumulate the profiled iteration also folds, into an
+    accumulator of its own: the saved state counts the loop's frames."""
+    prof = tmp_path / "prof"
+    assert run.main(_argv(ball, tmp_path / "acc.png", "--profile", str(prof),
+                          "--accumulate", "--frames", "2", "--backend",
+                          "cuda")) == 0
+    trace = json.loads((prof / "frame_trace.json").read_text())["traceEvents"]
+    names = {e.get("name") for e in trace}
+    assert {"rt.pose", "rt.upload", "rt.fold.widen", "rt.fold.add"} <= names
+    assert "rt.to_u8" not in names  # no u8 copy while accumulating
+    assert int(np.load(tmp_path / "acc_state.npz")["count"]) == 2
 
 
 # ---- the pipelined frame loop ----------------------------------------------

@@ -404,9 +404,8 @@ def test_stats_logger_is_shared_and_frame_stats_agree():
     assert stats.log is jax_stats.log
     a, b = stats.FrameStats(window=3), jax_stats.FrameStats(window=3)
     for fs in (a, b):
-        fs.times, fs.rays, fs.frames = [0.01, 0.02], [100, 300], 2
-    assert a.line() == b.line() and a.fps == b.fps
-    assert a.mrays_per_s == b.mrays_per_s
+        fs.times, fs.frames = [0.01, 0.02], 2
+    assert a.fps == b.fps
 
 
 def test_viewer_publishes_the_same_png():

@@ -888,3 +888,29 @@ def test_two_process_fused_dp_on_two_cards(two_cards):
     assert s0["sha256"] == s1["sha256"] == _rt_frame_sha(256, 192,
                                                          two_cards[0])
     assert s0["matches_single_device"] and s1["matches_single_device"]
+
+
+def test_frame_kernel_launches_record_one_launch_span_each(cuda):
+    """Under torch.profiler each launch of rt_frame and rt_frame_tiles sits
+    in one host span ``rt.launch`` (`tracing`), and no ``rt.*`` span has a
+    copy on the device's timeline."""
+    from refraction_tpu_torch.kernels.framekernel import frame_tiles
+
+    scene = scene_from_jax(_scenes()["sphere"], cuda)
+    cfg = RenderConfig(width=96, height=70)
+    scal = build_scalars(orbit_camera(0.4, cfg), cfg, sample_offsets(1), cuda)
+    fused_radiance(scene, scal, cfg)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fused_radiance(scene, scal, cfg)
+        frame_tiles(scene, scal, cfg, 2, 1, 4, 9)
+        torch.cuda.synchronize()
+    spans = [e for e in prof.events() if e.name.startswith("rt.")]
+    assert [e.name for e in spans] == ["rt.launch", "rt.launch"]
+    assert all(e.device_type == torch.autograd.DeviceType.CPU for e in spans)
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "rt_frame" in e.name]
+    assert len(kernels) == 2, kernels

@@ -227,20 +227,58 @@ def heatmap_to_rgb(counts: np.ndarray) -> np.ndarray:
 class Accumulator:
     """Progressive accumulation state, saved and resumed as ``.npz``.
 
-    A copy of `refraction_tpu.render.Accumulator` (that module imports
-    JAX): a float64 host sum and a frame count, in the same ``sum`` /
-    ``count`` file format, so a state saved by either package resumes in
-    the other."""
+    The state of `refraction_tpu.render.Accumulator` (that module imports
+    JAX): a float64 sum and a frame count, in the same ``sum`` / ``count``
+    file format, so a state saved by either package resumes in the other.
+
+    The sum lives where the frames are. `add` folds a numpy array or a
+    CPU tensor on the host, as the JAX package does; it folds a tensor on
+    a card on that card, into a float64 tensor there, with no copy of the
+    frame. ``card_folds`` counts the frames folded on a card. Reading
+    `sum` returns the host array, bringing a card's sum over first (one
+    synchronising copy); the next fold on the card takes it back up. Each
+    add is exact (float32 widens to float64 without rounding) and rounds
+    as IEEE float64 addition does on either side, so the sum's bits do not
+    depend on where the frames were folded."""
 
     def __init__(self, height: int, width: int):
-        self.sum = np.zeros((height, width, 3), np.float64)
+        self._shape = (height, width, 3)
+        # None (all zeros), a host float64 array, or a float64 tensor on
+        # the card the last frame came from.
+        self._sum: np.ndarray | torch.Tensor | None = None
         self.count = 0
+        self.card_folds = 0
 
-    def add(self, img: np.ndarray) -> None:
-        with span("rt.fold.widen"):
-            wide = np.asarray(img, np.float64)
-        with span("rt.fold.add"):
-            self.sum += wide
+    @property
+    def sum(self) -> np.ndarray:
+        """The (H, W, 3) float64 sum on the host."""
+        if self._sum is None:
+            self._sum = np.zeros(self._shape, np.float64)
+        elif isinstance(self._sum, torch.Tensor):
+            with span("rt.fold.fetch"):
+                self._sum = self._sum.cpu().numpy()
+        return self._sum
+
+    @sum.setter
+    def sum(self, value: np.ndarray) -> None:
+        self._sum = np.asarray(value, np.float64)
+
+    def add(self, img: np.ndarray | torch.Tensor) -> None:
+        if isinstance(img, torch.Tensor) and img.device.type != "cpu":
+            with span("rt.fold.card"):
+                if self._sum is None:
+                    self._sum = torch.zeros(self._shape, dtype=torch.float64,
+                                            device=img.device)
+                else:  # a host sum goes up once; a card's sum stays put
+                    self._sum = torch.as_tensor(self._sum, device=img.device)
+                # float32 + float64 widens inside the add: no temporary.
+                self._sum.add_(img)
+            self.card_folds += 1
+        else:
+            with span("rt.fold.widen"):
+                wide = np.asarray(img, np.float64)
+            with span("rt.fold.add"):
+                self.sum += wide
         self.count += 1
 
     @property

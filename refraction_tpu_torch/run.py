@@ -42,12 +42,13 @@ There is no fallback: ``--device cuda`` without CUDA is an error.
   drive the flag.
 
 The loop is pipelined, as the JAX CLI's: right behind each frame it
-queues the frame's copies to the host (the u8 display image, and the
-float radiance where ``--accumulate`` or ``--raw`` needs it) into one of
-two pinned buffers and records an event; it enqueues the next frame, and
-only then waits for that event and writes, publishes or accumulates the
-frame while the card renders the next one (`HostCopies`). The files are
-those of a frame-by-frame render.
+queues the frame's u8 display image to the host into one of two pinned
+buffers and records an event; it enqueues the next frame, and only then
+waits for that event and writes, publishes or accumulates the frame
+while the card renders the next one (`HostCopies`). The float radiance
+stays on the card: ``--accumulate`` folds it there, and ``--raw`` copies
+it to the host when it writes it. The files are those of a
+frame-by-frame render.
 
 Examples:
   python -m refraction_tpu_torch.run --scene shell.obj --frames 8 \\
@@ -110,48 +111,46 @@ def to_u8(img: torch.Tensor, linear: bool = False) -> torch.Tensor:
 
 
 class HostCopies:
-    """A frame's copies to the host, queued behind it on the card.
+    """A frame's u8 display image to the host, queued behind it on the
+    card; its float radiance stays on the card.
 
     `enqueue` queues, on the current stream right behind the frame, its u8
-    display image (`to_u8`) and/or its float radiance into one of two
-    pinned host buffers, the slots taken in turns, then records an event;
-    it returns the host arrays (valid once the event has completed) and
+    display image (`to_u8`) into one of two pinned host buffers, the slots
+    taken in turns, then records an event; it returns the host array
+    (valid once the event has completed), the radiance (the frame's own
+    device tensor, which `render.Accumulator.add` folds on the card) and
     the event. The loop enqueues the next frame before it waits for that
     event, so the card renders frame N while the host writes frame N - 1.
     A slot is written again two frames later, after the loop has drained
-    its frame. On the CPU the arrays are made at once and there is no
-    event."""
+    its frame. On the CPU both are host arrays, made at once, and there
+    is no event."""
 
     def __init__(self, device: torch.device, u8: bool, radiance: bool,
                  linear: bool):
         self.device, self.u8, self.radiance = device, u8, radiance
         self.linear = linear
-        self._slots: list[dict] = [{}, {}]
+        self._slots: list[torch.Tensor | None] = [None, None]
         self._next = 0
 
     def enqueue(self, img: torch.Tensor):
-        """(u8 (H, W, 3) array or None, radiance (H, W, 3) array or None,
+        """(u8 (H, W, 3) host array or None, radiance (H, W, 3) or None,
         event or None) of ``img``."""
-        srcs = {"u8": to_u8(img, self.linear) if self.u8 else None,
-                "radiance": img if self.radiance else None}
+        u8 = to_u8(img, self.linear) if self.u8 else None
+        radiance = img if self.radiance else None
         if self.device.type != "cuda":
-            return (*(None if t is None else t.numpy()
-                      for t in srcs.values()), None)
-        slot = self._slots[self._next]
+            return (None if u8 is None else u8.numpy(),
+                    None if radiance is None else radiance.numpy(), None)
+        slot = self._next
         self._next ^= 1
-        out = []
-        for key, src in srcs.items():
-            if src is None:
-                out.append(None)
-                continue
-            if key not in slot:
-                slot[key] = torch.empty(src.shape, dtype=src.dtype,
-                                        pin_memory=True)
-            slot[key].copy_(src, non_blocking=True)
-            out.append(slot[key].numpy())
+        if u8 is not None:
+            if self._slots[slot] is None:
+                self._slots[slot] = torch.empty(u8.shape, dtype=u8.dtype,
+                                                pin_memory=True)
+            self._slots[slot].copy_(u8, non_blocking=True)
+            u8 = self._slots[slot].numpy()
         done = torch.cuda.Event()
         done.record()
-        return out[0], out[1], done
+        return u8, radiance, done
 
 
 def profile_frame(renderer, scene, cfg: RenderConfig, angle: float,
@@ -353,13 +352,14 @@ def main(argv=None) -> int:
     else:
         renderer = make_renderer(cfg, backend, device)
     acc = None
-    if args.accumulate:
-        acc = (Accumulator.load(args.resume) if args.resume
-               else Accumulator(cfg.height, cfg.width))
+    if args.resume:  # parse_args has required --accumulate beside it
+        acc = Accumulator.load(args.resume)
         if acc.sum.shape[:2] != (cfg.height, cfg.width):
             raise ValueError(f"--resume {args.resume}: state is "
                              f"{acc.sum.shape[:2]}, frames are "
                              f"{(cfg.height, cfg.width)}")
+    elif args.accumulate:
+        acc = Accumulator(cfg.height, cfg.width)
     serve = None
     if args.serve is not None:
         serve = FrameServer(port=args.serve)
@@ -404,8 +404,9 @@ def main(argv=None) -> int:
             path = (f"{base}{ext}" if args.frames == 1
                     else f"{base}_{i:04d}{ext}")
             write_png(path, u8)
-            if args.raw:
-                np.save(os.path.splitext(path)[0] + ".npy", radiance)
+            if args.raw:  # a host array on the CPU, the card's tensor
+                np.save(os.path.splitext(path)[0] + ".npy",
+                        torch.as_tensor(radiance).cpu().numpy())
         stats.start()
 
     angle = args.angle
@@ -440,7 +441,8 @@ def main(argv=None) -> int:
         log.info("interrupted after %d frames", stats.frames)
 
     if acc is not None:
-        log.info("accumulated %d frames", acc.count)
+        log.info("accumulated %d frames (%d folded on the card)", acc.count,
+                 acc.card_folds)
         acc.save(f"{base}_state.npz")
         final = acc.image
         write_png(f"{base}{ext}",

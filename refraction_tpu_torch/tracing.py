@@ -18,8 +18,13 @@ one; no name starts with ``rt_frame``, the frame kernel's prefix):
 - ``rt.launch``: the CUDA branch of the frame kernel's wrappers (argument
   checks, the output's allocation, the launch);
 - ``rt.to_u8``: `run.to_u8` (enqueueing the display transform);
-- ``rt.fold.widen`` and ``rt.fold.add``: `render.Accumulator.add` (the
-  float64 copy of the frame, then the add into the sum).
+- ``rt.fold.widen`` and ``rt.fold.add``: `render.Accumulator.add` of a
+  host frame (the float64 copy of the frame, then the add into the sum);
+- ``rt.fold.card``: `render.Accumulator.add` of a frame on a card
+  (enqueueing the add into the card's float64 sum; the first fold there
+  also allocates the sum, or uploads a resumed one);
+- ``rt.fold.fetch``: reading `render.Accumulator.sum` while it lives on a
+  card (one synchronising copy of the sum to the host).
 """
 
 from __future__ import annotations

@@ -225,6 +225,39 @@ def test_mtl_ior_source_is_the_first_obj_load_instanced_reads(
     assert run.mtl_ior_source(args, cfg) == read[0]
 
 
+@pytest.mark.parametrize("kind", ["ndarray", "cpu-tensor"])
+def test_accumulator_host_fold_keeps_the_jax_packages_bits(kind):
+    """A host frame (a numpy array or a CPU tensor) is folded on the host,
+    bit for bit as the JAX package folds its numpy copy; no card fold."""
+    rng = np.random.default_rng(2)
+    frames = rng.random((4, 4, 5, 3)).astype(np.float32) * 3.0
+    got, want = Accumulator(4, 5), JaxAccumulator(4, 5)
+    for f in frames:
+        got.add(f if kind == "ndarray" else torch.from_numpy(f))
+        want.add(f)
+    assert (got.count, got.card_folds) == (4, 0)
+    assert isinstance(got.sum, np.ndarray) and got.sum.dtype == np.float64
+    np.testing.assert_array_equal(got.sum.view(np.uint64),
+                                  want.sum.view(np.uint64))
+    np.testing.assert_array_equal(got.image, want.image)
+
+
+def test_accumulator_sum_is_a_host_float64_array_that_can_be_set():
+    acc = Accumulator(4, 5)
+    got = acc.sum
+    assert isinstance(got, np.ndarray) and got.dtype == np.float64
+    assert got.shape == (4, 5, 3) and not got.any()
+    assert acc.sum is got  # one array: a read does not copy
+    # Assigning sets the host value, as `load` does; a float32 state is
+    # widened, and folds go on from it.
+    start = np.arange(60, dtype=np.float32).reshape(4, 5, 3)
+    acc.sum = start
+    assert acc.sum.dtype == np.float64
+    acc.add(np.ones((4, 5, 3), np.float32))
+    np.testing.assert_array_equal(acc.sum, start.astype(np.float64) + 1.0)
+    assert (acc.count, acc.card_folds) == (1, 0)
+
+
 @pytest.mark.parametrize("direction", ["torch-to-jax", "jax-to-torch"])
 def test_accumulator_state_round_trips(tmp_path, direction):
     rng = np.random.default_rng(1)

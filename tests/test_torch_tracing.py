@@ -26,7 +26,9 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPANS = {"rt.pose", "rt.upload", "rt.launch", "rt.to_u8", "rt.fold.widen",
-         "rt.fold.add"}
+         "rt.fold.add", "rt.fold.card", "rt.fold.fetch"}
+# Spans of the CUDA branches: the launch, and the fold into a card's sum.
+CARD_SPANS = {"rt.launch", "rt.fold.card", "rt.fold.fetch"}
 
 
 def _spans(prof) -> dict:
@@ -67,9 +69,8 @@ def test_one_frame_records_the_frame_paths_spans():
         acc.add(radiance)
     assert done is None and acc.count == 1
     got = _spans(prof)
-    # The launch span is the CUDA branch's; the CPU renders the plain
-    # version.
-    assert set(got) == SPANS - {"rt.launch"}
+    # The CPU renders the plain version and folds on the host.
+    assert set(got) == SPANS - CARD_SPANS
     assert all(len(v) == 1 for v in got.values()), got
     (r0, r1), = [(ev.time_range.start, ev.time_range.end)
                  for ev in prof.events() if ev.name == "test.render"]
@@ -106,7 +107,7 @@ def _span_calls(path: str) -> list:
 
 
 def test_the_port_opens_the_six_spans_and_no_other():
-    """Each of the six names once, as a literal, outside `tracing`; no
+    """Each of the eight names once, as a literal, outside `tracing`; no
     other module records a span of its own (``record_function``)."""
     names = []
     for path in glob.glob(os.path.join(REPO, "refraction_tpu_torch", "**",

@@ -18,7 +18,9 @@ The TPU path's front-to-back cluster permutation (``front_to_back_scene``)
 becomes a per-ray near-to-far walk inside the kernel over the scene's
 super and cluster boxes, so winner indices need no remapping. The kernel
 has two instances, chosen at launch from the scene: `walk_of` names the
-one a scene takes. A launch that fails raises.
+one a scene takes, `walk_levels` its box levels, and each full-frame
+wrapper counts its launches per instance beside ``launches``
+(``fused_radiance.walks["supers"]``). A launch that fails raises.
 
 Both entries run one thread per pixel over csrc/traverse_f2b.cuh's walk.
 The group form of the same function, each ray walked by a group of 4 or
@@ -53,6 +55,7 @@ from refraction_tpu_torch.kernels.envmap import (
 )
 from refraction_tpu_torch.kernels.intersect import check_scene_tables
 from refraction_tpu_torch.ops.backends import torch_intersect
+from refraction_tpu_torch.scene import SUPER_CLUSTERS
 from refraction_tpu_torch.tracing import span
 
 # Scalar vector layout (as refraction_tpu/kernels/framekernel.py:96-103):
@@ -136,6 +139,16 @@ def walk_of(scene) -> str:
     return "supers" if scene.num_supers > 0 else "flat"
 
 
+def walk_levels(scene) -> dict:
+    """The levels ``scene``'s walk goes through: its instance (`walk_of`),
+    super boxes, the groups of up to 32 supers its top level walks one
+    after another (0 on the flat walk), clusters and subs a cluster."""
+    return {"walk": walk_of(scene), "supers": scene.num_supers,
+            "groups": -(-scene.num_supers // SUPER_CLUSTERS),
+            "clusters": scene.num_clusters,
+            "subs_per_cluster": scene.cluster_size // scene.sub_tris}
+
+
 def fused_radiance(scene, scalars: torch.Tensor,
                    cfg: RenderConfig) -> torch.Tensor:
     """(scene, scalar vector, cfg) -> (H, W, 3) float32 linear radiance.
@@ -148,13 +161,14 @@ def fused_radiance(scene, scalars: torch.Tensor,
 
 
 fused_radiance.launches = 0
+fused_radiance.walks = {"flat": 0, "supers": 0}
 
 
 def _radiance(wrapper, entry: str, lead: tuple, scene, scalars,
               cfg) -> torch.Tensor:
     """The plain version on CPU tensors; on CUDA one launch of the
     full-frame entry ``entry`` (arguments ``lead``, then rt_frame's),
-    counted on ``wrapper``."""
+    counted on ``wrapper``, in all and under its walk instance."""
     if scalars.device.type == "cpu":
         return fused_radiance_plain(scene, scalars, cfg)
     if scalars.device.type != "cuda":
@@ -167,6 +181,7 @@ def _radiance(wrapper, entry: str, lead: tuple, scene, scalars,
         launch(entry, scalars.device, *lead,
                *_frame_args(scene, scalars, cfg, out))
     wrapper.launches += 1
+    wrapper.walks[walk_of(scene)] += 1
     return out
 
 
@@ -186,6 +201,7 @@ def fused_radiance_group(scene, scalars: torch.Tensor, cfg: RenderConfig,
 
 
 fused_radiance_group.launches = 0
+fused_radiance_group.walks = {"flat": 0, "supers": 0}
 
 
 def frame_occupancy(form: str, walk: str, device: torch.device) -> dict:

@@ -80,6 +80,7 @@ from refraction_tpu_torch.config import (
 )
 from refraction_tpu_torch.io.mtl import ior_for_scene
 from refraction_tpu_torch.io.png import write_png
+from refraction_tpu_torch.kernels.framekernel import walk_levels
 from refraction_tpu_torch.parallel.sharding import (
     make_fused_sharded_renderer,
     make_mesh,
@@ -329,10 +330,13 @@ def main(argv=None) -> int:
         scene_np, meta = load_instanced(args.instances, cfg)
     else:
         scene_np, meta = load_scene(cfg)
-    log.info("tris=%d (padded %d), clusters=%d, envmap=%s",
-             meta.num_real_tris, meta.num_padded_tris,
-             scene_np.num_clusters, scene_np.envmap.shape)
     scene = scene_from_jax(scene_np, device)
+    lv = walk_levels(scene)
+    log.info("tris=%d (padded %d), envmap=%s, walk=%s: %d supers in %d "
+             "groups, %d clusters, %d subs a cluster", meta.num_real_tris,
+             meta.num_padded_tris, scene_np.envmap.shape, lv["walk"],
+             lv["supers"], lv["groups"], lv["clusters"],
+             lv["subs_per_cluster"])
 
     if args.heatmap:
         counts = render_heatmap(scene, cfg, orbit_camera(args.angle, cfg),

@@ -1,0 +1,143 @@
+"""The ``shell_hp`` deployment (rtbench/configs/shell_hp.json): a
+1,638,400-triangle nested glass shell at 1920x1080.
+
+On the CPU, without building its scene: the configuration's mesh has the
+triangle count its two icospheres give, and at `scene.auto_cluster_size`
+its tables have 3,200 clusters and 100 super boxes, more than 32, so the
+frame kernel walks its supers in groups (`framekernel.walk_levels`). The
+port's CPU path renders the configuration's ``render`` block on a tiny
+nested shell as the benchmark's plain reference does, and `run.main`'s
+scene log line names the walk and its levels."""
+
+import json
+import logging
+
+import numpy as np
+import pytest
+import torch
+
+from refraction_tpu_torch import run
+from refraction_tpu_torch.camera import orbit_camera
+from refraction_tpu_torch.fixtures import write_scene
+from refraction_tpu_torch.io.objmesh import MeshData
+from refraction_tpu_torch.io.primitives import (
+    make_gradient_envmap,
+    make_icosphere,
+)
+from refraction_tpu_torch.io.texture import load_texture
+from refraction_tpu_torch.kernels.framekernel import walk_levels
+from refraction_tpu_torch.kernels.intersect import check_scene_tables
+from refraction_tpu_torch.render import make_renderer
+from refraction_tpu_torch.scene import (
+    SUB_TRIS,
+    TorchScene,
+    auto_cluster_size,
+    build_scene,
+    scene_from_jax,
+    super_bounds,
+)
+from rtbench import harness, inputs, spec
+from rtbench.reference import tracer
+
+CONFIG = spec._load_json(spec.config_path("shell_hp"), "shell_hp")
+# rtbench's tiny nested shell (rtbench/tests/conftest.py TINY_MESH): 80
+# outward triangles around 20 inward-wound ones.
+TINY_SHELL = {"kind": "nested_shell", "outer_subdiv": 1, "outer_radius": 1.2,
+              "inner_subdiv": 0, "inner_radius": 0.9}
+
+
+def _tables(num_tris: int, cluster_size: int) -> TorchScene:
+    """A scene of ``num_tris`` triangles at ``cluster_size`` with tables of
+    the shapes `scene_from_jax` gives and no contents (nothing is built or
+    written: `torch.empty`)."""
+    clusters = num_tris // cluster_size
+    e = lambda *shape: torch.empty(*shape, dtype=torch.float32)  # noqa: E731
+    return TorchScene(
+        tri_a=e(num_tris, 3), tri_e1=e(num_tris, 3), tri_e2=e(num_tris, 3),
+        tri_packed=e(num_tris, 9), tri_norm_packed=e(num_tris, 9),
+        cluster_bounds=e(clusters, 6), sub_bounds=e(num_tris // SUB_TRIS, 6),
+        envmap=e(4, 8, 3), tri_mask=None,
+        super_bounds=torch.from_numpy(
+            super_bounds(np.zeros((clusters, 6), np.float32))),
+        sub_tris=SUB_TRIS)
+
+
+def test_shell_hp_takes_the_grouped_supers_walk():
+    mesh = CONFIG["mesh"]
+    outer, inner = mesh["outer_subdiv"], mesh["inner_subdiv"]
+    assert mesh["tris"] == 20 * 4 ** outer + 20 * 4 ** inner == 1638400
+    # The generator gives 20 * 4^k triangles a sphere, outer first.
+    small = inputs.nested_shell(2, 1.2, 1, 0.9)[0]
+    assert small.shape == (20 * 4 ** 2 + 20 * 4 ** 1, 3, 3)
+    cs = auto_cluster_size(mesh["tris"])
+    assert cs == 512 and mesh["tris"] % cs == 0
+    scene = _tables(mesh["tris"], cs)
+    check_scene_tables(scene, torch.device("cpu"))  # the supers' shape rule
+    assert walk_levels(scene) == {"walk": "supers", "supers": 100,
+                                  "groups": 4, "clusters": 3200,
+                                  "subs_per_cluster": 64}
+    assert scene.num_supers > 32  # more than one group at the top level
+    assert CONFIG["reduced"] == ["mesh"]
+    bench = spec.load_bench()
+    cell = next(w for w in bench["workloads"] if w["name"] == "shell_hp.orbit")
+    assert (cell["config"], cell["traffic"], cell["chips"]) == (
+        "shell_hp", "orbit", 1)
+
+
+@pytest.mark.parametrize("angles", [[0.3, 2.9], [4.7]])
+def test_cpu_path_matches_the_reference_at_shell_hp_render(angles):
+    """`make_renderer(rcfg, "torch", "cpu")` with shell_hp's ``render``
+    block at 20x14 on the tiny nested shell, against the benchmark's plain
+    reference (brute force over every triangle) to 1e-6."""
+    render = json.loads(json.dumps(CONFIG["render"]))
+    render.update(width=20, height=14)
+    mesh = inputs.make_mesh(TINY_SHELL)
+    env = inputs.make_env(2 ** 31 + 17, 32, 64, torch.device("cpu"))
+    host, _ = build_scene(MeshData(*mesh), env.numpy(),
+                          auto_cluster_size(mesh[0].shape[0]))
+    scene = scene_from_jax(host, "cpu")
+    rcfg = harness.render_config(render)
+    assert (rcfg.width, rcfg.height, rcfg.spp, rcfg.max_refract_depth,
+            rcfg.max_reflect_depth) == (20, 14, 1, 5, 2)
+    assert rcfg.resolved_aspect == 20 / 14
+    port = make_renderer(rcfg, "torch", "cpu")
+    sc = tracer.Scene(mesh[0], mesh[1], env, "cpu")
+    ids = torch.arange(20 * 14)[None].expand(len(angles), -1)
+    ref, stats = tracer.render_views(sc, render, angles, ids)
+    assert stats["hits"] > 0 and stats["misses"] > 0
+    for k, a in enumerate(angles):
+        img = port(scene, orbit_camera(a, rcfg)).reshape(-1, 3).double()
+        assert float((img - ref[k]).abs().max()) < 1e-6
+
+
+def _scene_line(caplog) -> str:
+    lines = [m for m in caplog.messages if m.startswith("tris=")]
+    assert len(lines) == 1, caplog.messages
+    return lines[0]
+
+
+def test_cli_logs_the_walk_and_its_levels(tmp_path, caplog, monkeypatch):
+    """The flat walk on a small ball; the supers walk in three groups when
+    the scene is built at clusters of 8 (20,480 triangles: 2,560 clusters,
+    80 supers)."""
+    obj, hdr = write_scene(str(tmp_path), "ball", make_icosphere(2, 1.2),
+                           make_gradient_envmap(16, 32))
+    argv = ["--scene", obj, "--envmap", hdr, "--width", "8", "--height", "6",
+            "--device", "cpu", "--out", str(tmp_path / "f.png")]
+    with caplog.at_level(logging.INFO, logger="refraction_tpu"):
+        assert run.main(argv) == 0
+    assert _scene_line(caplog) == (
+        "tris=320 (padded 1024), envmap=(16, 32, 3), walk=flat: 0 supers in "
+        "0 groups, 1 clusters, 128 subs a cluster")
+
+    def fine_scene(cfg):
+        return build_scene(make_icosphere(5, 1.2),
+                           load_texture(cfg.envmap_path), 8)
+
+    monkeypatch.setattr(run, "load_scene", fine_scene)
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger="refraction_tpu"):
+        assert run.main(argv) == 0
+    assert _scene_line(caplog) == (
+        "tris=20480 (padded 20480), envmap=(16, 32, 3), walk=supers: 80 "
+        "supers in 3 groups, 2560 clusters, 1 subs a cluster")

@@ -158,15 +158,22 @@ def build_scene(mesh: MeshData, envmap: np.ndarray, cluster_size: int = 32,
 
 
 def auto_cluster_size(num_tris: int) -> int:
-    """Cluster size per scene, as the JAX package picks it (chosen there by
-    sweeps on a TPU; the port keeps the same tables so that both packages
-    trace the same scene)."""
+    """Cluster size per scene from its triangle count: 1,024 up to 1,100
+    triangles, 128 up to 32,768, 512 past that.
+
+    Up to 8,192 and past 32,768 triangles these are the JAX package's
+    values (chosen there by sweeps on a TPU), so both packages build the
+    same tables. From 8,193 to 32,768 the JAX package takes 1,024: at most
+    32 clusters of 128 subs, which the H100's frame kernel walks flat,
+    testing every cluster box and then every sub box of a cluster crossed
+    in table order. At 128 every count of that band has 65-256 clusters
+    of 16 subs, so the tables get super boxes and the kernel walks
+    supers, clusters and subs near to far; the card's sweep put 128 ahead
+    of 256, 512 and 1,024 there (PERF.md §6)."""
     if num_tris <= 1100:
         return 1024
-    if num_tris <= 8192:
-        return 128
     if num_tris <= 32768:
-        return 1024
+        return 128
     return 512
 
 

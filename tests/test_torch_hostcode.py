@@ -339,9 +339,23 @@ def test_build_scene_leaves_equal(mesh, cs):
                  jax_scene.build_scene(m(jax_prim), env, size))
 
 
-def test_auto_cluster_size_equal():
-    for n in (0, 12, 1100, 1101, 1280, 8192, 8193, 32768, 32769, 81920):
-        assert scene.auto_cluster_size(n) == jax_scene.auto_cluster_size(n)
+@pytest.mark.parametrize(
+    "n", [0, 12, 1100, 1101, 1280, 8192, 32769, 81920])
+def test_auto_cluster_size_equal(n):
+    """Outside 8,193-32,768 triangles both packages build the same tables."""
+    assert scene.auto_cluster_size(n) == jax_scene.auto_cluster_size(n)
+
+
+@pytest.mark.parametrize("n", [8193, 10240, 12877, 20480, 25600, 32768])
+def test_auto_cluster_size_band_walks_supers(n):
+    """From 8,193 to 32,768 triangles the port sizes clusters for the
+    H100's walk, not the JAX package's TPU sweep: more than
+    ``SUPER_CLUSTERS`` clusters (the tables get super boxes, so the frame
+    kernel walks near to far), each of 16 subs."""
+    size = scene.auto_cluster_size(n)
+    assert size == 128
+    assert -(-n // size) > scene.SUPER_CLUSTERS
+    assert size // scene.SUB_TRIS == 16
 
 
 def test_load_scene_equal(tmp_path):

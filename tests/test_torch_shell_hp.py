@@ -7,7 +7,8 @@ its tables have 3,200 clusters and 100 super boxes, more than 32, so the
 frame kernel walks its supers in groups (`framekernel.walk_levels`). The
 port's CPU path renders the configuration's ``render`` block on a tiny
 nested shell as the benchmark's plain reference does, and `run.main`'s
-scene log line names the walk and its levels."""
+scene log line names the walk and its levels (also for config5's
+20,480-triangle sphere, which takes the supers walk at its size)."""
 
 import json
 import logging
@@ -141,3 +142,18 @@ def test_cli_logs_the_walk_and_its_levels(tmp_path, caplog, monkeypatch):
     assert _scene_line(caplog) == (
         "tris=20480 (padded 20480), envmap=(16, 32, 3), walk=supers: 80 "
         "supers in 3 groups, 2560 clusters, 1 subs a cluster")
+
+
+def test_cli_logs_the_supers_walk_of_config5s_sphere(tmp_path, caplog):
+    """config5's 20,480-triangle sphere as `load_scene` builds it (at
+    `auto_cluster_size`, 128 from 1,101 to 32,768 triangles): the supers
+    walk, 5 supers in one group over 160 clusters of 16 subs."""
+    obj, hdr = write_scene(str(tmp_path), "ott", make_icosphere(5, 1.2),
+                           make_gradient_envmap(16, 32))
+    argv = ["--scene", obj, "--envmap", hdr, "--width", "6", "--height", "4",
+            "--device", "cpu", "--out", str(tmp_path / "f.png")]
+    with caplog.at_level(logging.INFO, logger="refraction_tpu"):
+        assert run.main(argv) == 0
+    assert _scene_line(caplog) == (
+        "tris=20480 (padded 20480), envmap=(16, 32, 3), walk=supers: 5 "
+        "supers in 1 groups, 160 clusters, 16 subs a cluster")

@@ -7,14 +7,19 @@ of the benchmark's ``shell_hp`` deployment (3,200 clusters, 100 supers in
 four groups) at a size the plain version renders in a moment; the
 deployment's own 1,638,400-triangle scene is held against the
 benchmark's plain reference (rtbench/reference/tracer.py) at a small
-image. Each launch is counted under its walk instance."""
+image. config5's 20,480-triangle sphere, built at `auto_cluster_size`,
+takes the supers walk with a single group. Each launch is counted under
+its walk instance."""
 
 import pytest
 import torch
 
 from refraction_tpu_torch.camera import orbit_camera
 from refraction_tpu_torch.io.objmesh import MeshData
-from refraction_tpu_torch.io.primitives import make_gradient_envmap
+from refraction_tpu_torch.io.primitives import (
+    make_gradient_envmap,
+    make_icosphere,
+)
 from refraction_tpu_torch.kernels.framekernel import (
     build_scalars,
     fused_radiance,
@@ -35,6 +40,7 @@ from test_torch_kernels import _img_ok
 pytestmark = pytest.mark.cuda
 
 SHELL_HP = spec._load_json(spec.config_path("shell_hp"), "shell_hp")
+CONFIG5 = spec._load_json(spec.config_path("config5"), "config5")
 U8_LIMITS = spec._load_json(spec.limits_path("shell_hp", "u8"),
                             "shell_hp.u8")["limits"]
 
@@ -65,6 +71,32 @@ def test_grouped_top_level_matches_plain(cuda):
     for angle in (0.35, 2.2):
         scal = build_scalars(orbit_camera(angle, cfg), cfg, sample_offsets(1),
                              cuda)
+        before = _counts()
+        img = fused_radiance(scene, scal, cfg)
+        _took_supers(before, 1)
+        assert float(img.std()) > 0
+        ok, why = _img_ok(img, fused_radiance_plain(scene, scal, cfg))
+        assert ok, (angle, why)
+
+
+def test_config5_mesh_walks_supers_and_matches_plain(cuda):
+    """config5's sphere at `auto_cluster_size` (128): 160 clusters of 16
+    subs under 5 super boxes, which ``rt_frame`` walks near to far; at
+    config5's caps and spp the image matches the plain version."""
+    mesh = make_icosphere(5, 1.2)
+    assert mesh.num_tris == CONFIG5["mesh"]["tris"] == 20480
+    host, _ = build_scene(mesh, make_gradient_envmap(),
+                          auto_cluster_size(mesh.num_tris))
+    scene = scene_from_jax(host, cuda)
+    assert walk_levels(scene) == {"walk": "supers", "supers": 5,
+                                  "groups": 1, "clusters": 160,
+                                  "subs_per_cluster": 16}
+    cfg = harness.render_config({**CONFIG5["render"], "width": 64,
+                                 "height": 48})
+    assert (cfg.spp, cfg.max_refract_depth, cfg.max_reflect_depth) == (4, 5, 2)
+    for angle in (0.35, 2.2):
+        scal = build_scalars(orbit_camera(angle, cfg), cfg,
+                             sample_offsets(cfg.spp), cuda)
         before = _counts()
         img = fused_radiance(scene, scal, cfg)
         _took_supers(before, 1)

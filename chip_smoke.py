@@ -22,23 +22,18 @@ Phases (any failure raises; nothing is caught):
      (times: the card's, the launches queued behind a spin kernel);
   4. frame kernel vs the eager integrator at 256x192 (five cases) and on
      the 81,920-triangle scene at 160x90, each with the traversal walk it
-     took (flat: at most 32 clusters; supers); in each case its group
-     form (``fused_radiance_group``, 8 and 4 lanes a ray, an instrument)
-     must give the same image, sha256 for sha256;
+     took (flat: at most 32 clusters; supers);
   5. the CLI with ``--backend cuda`` on the demo configuration (1024x768,
      5/2 bounces, 8 orbit frames, 1,280 triangles) and on the large scene
      (1920x1080, 4 bounces, 4 frames, 81,920 triangles); the frame kernel
      must be launched exactly once per frame, and every file the pipelined
      loop wrote (PNG and .npy) must equal a frame-by-frame render, byte for
-     byte, and the group form must not be launched; then the demo and
-     large frames against the group form (bit-equal, as in phase 4);
-     ``--profile`` on the demo scene, whose trace must name the
+     byte; ``--profile`` on the demo scene, whose trace must name the
      frame kernel's CUDA symbol; then the ptxas lines (registers, stack,
-     spills) of every frame kernel, one thread and group, and their
-     occupancy (resident warps per SM), the device time of the frame
-     kernel and of its group form at 8 and 4 lanes, in turns, at demo,
-     demo spp 4 and large, and each one's bound (bounds.py: the traversal
-     work of the frame's rays);
+     spills) of every frame kernel and the full-frame kernel's occupancy
+     (resident warps per SM), the device time of the frame kernel at
+     demo, demo spp 4 and large, and each one's bound (bounds.py: the
+     traversal work of the frame's rays);
   6. the round kernel in both layouts on 2^16 lanes (with subnormal
      weights), per variant: the static layout vs its plain version; the
      compacted layout (a shuffled queue of the live lanes) vs its plain
@@ -104,9 +99,8 @@ Phases (any failure raises; nothing is caught):
      launch's, and one-tile launches (every tile of the demo; two of the
      large frame); ``frame_tiles`` vs its plain version at 256x192 on
      shards 0 and 1 of 3 and on the 4 shards of the demo frame (the
-     kernels line's error), and the group form's ``frame_tiles_group`` at
-     8 and 4 lanes bit-equal to it on those 4 shards; the wavefront
-     pixel-DP (2 shards) bit-equal to one shard;
+     kernels line's error); the wavefront pixel-DP (2 shards) bit-equal
+     to one shard;
      sample-SP on a 2x2 grid at spp 4 (RMSE < 1e-6); tri-TP over 2 shards
      (winners equal to the brute force on 2^14 rays); the LBVH oracle
      (build times at 1,280 and 81,920 tris, 2^16 rays against the brute
@@ -137,8 +131,7 @@ Phases (any failure raises; nothing is caught):
      and build80k's cold build in a directory other than ``_build/``.
 
 The line before the last is a JSON object with each kernel's launches in
-its main-path phase (5 for the frame kernel and for its group form
-``frame_group``, which the main path never launches, 9 for its pixel-DP
+its main-path phase (5 for the frame kernel, 9 for its pixel-DP
 entry ``frame_tiles``, 6 for the round kernel in
 both layouts: ``round_queue`` and ``round_fold`` on the wavefront path,
 ``round`` on the static-layout wavefronts held against it; the modular
@@ -236,10 +229,6 @@ def image_diff(np, a, b) -> dict:
     return {"rmse": float(np.sqrt(np.mean(d ** 2))),
             "max_abs_err": float(d.max()),
             "share_over": float((d.max(axis=-1) > PIX_TOL).mean())}
-
-
-def sha256_of(img) -> str:
-    return hashlib.sha256(img.detach().cpu().numpy().tobytes()).hexdigest()
 
 
 def check_image(tag: str, diff: dict) -> None:
@@ -460,9 +449,8 @@ def main() -> int:
     from refraction_tpu_torch.kernels.envmap import (
         env_contribution, env_contribution_plain)
     from refraction_tpu_torch.kernels.framekernel import (
-        build_scalars, frame_occupancy, frame_tiles, frame_tiles_group,
-        frame_tiles_plain, fused_radiance, fused_radiance_group,
-        fused_radiance_plain, tile_grid, walk_of)
+        build_scalars, frame_occupancy, frame_tiles, frame_tiles_plain,
+        fused_radiance, fused_radiance_plain, tile_grid, walk_of)
     from refraction_tpu_torch.kernels.intersect import (
         closest_hit, closest_hit_plain)
     from refraction_tpu_torch.kernels.megakernel import (
@@ -649,24 +637,7 @@ def main() -> int:
     results["env"] = (*results["env"][:2], env_err, eb)
 
     # --- phase 4: frame kernel vs eager integrator ----------------------
-    log("phase 4: frame kernel vs eager integrator; its group form bit for "
-        "bit")
-
-    def same_forms(tag, sc, scal, cfg, img):
-        """rt_frame's image ``img`` against its group form's, 8 and 4 lanes
-        a ray, on the same inputs: equal sha256, or the run fails."""
-        sha = {"rt_frame": sha256_of(img)}
-        for lanes in (8, 4):
-            other = fused_radiance_group(sc, scal, cfg, lanes)
-            torch.cuda.synchronize()
-            sha[f"rt_frame_group {lanes}"] = sha256_of(other)
-            if not torch.equal(other, img):
-                bad = int((other != img).any(dim=-1).sum())
-                raise AssertionError(
-                    f"{tag}: rt_frame and rt_frame_group ({lanes} lanes) "
-                    f"differ at {bad} pixels (sha256 {sha})")
-        log(f"  {tag}: sha256 {sha['rt_frame'][:16]} for rt_frame and "
-            "rt_frame_group at 8 and 4 lanes (bit-equal)")
+    log("phase 4: frame kernel vs eager integrator")
 
     env_mid = make_gradient_envmap(256, 512)
     sphere = device_scene(make_icosphere(3, 1.2), env_mid)
@@ -690,7 +661,6 @@ def main() -> int:
         torch.cuda.synchronize()
         if tuple(img_k.shape) != (cfg.height, cfg.width, 3):
             raise AssertionError(f"{tag}: shape {tuple(img_k.shape)}")
-        same_forms(f"{tag} (walk {walk_of(sc)})", sc, scal, cfg, img_k)
         check_image(f"{tag} (walk {walk_of(sc)})", image_diff(np, img_k, img_p))
 
     # --- phase 5: the main path through the CLI -------------------------
@@ -717,7 +687,6 @@ def main() -> int:
         fused_radiance.launches = 0
         closest_hit.launches = 0
         env_contribution.launches = 0
-        fused_radiance_group.launches = 0
         for tag, mesh, wd, ht, bounces, frames in runs:
             before = fused_radiance.launches
             del frame_lines[:]
@@ -746,14 +715,10 @@ def main() -> int:
                 f"frame {[round(m, 3) for m in ms]} [{card}]")
         launches = {"frame": fused_radiance.launches,
                     "closest_hit": closest_hit.launches,
-                    "env": env_contribution.launches,
-                    "frame_group": fused_radiance_group.launches}
+                    "env": env_contribution.launches}
     finally:
         logging.getLogger("refraction_tpu").removeHandler(cap)
     log(f"  launches during phase 5: {launches}")
-    if launches["frame_group"]:
-        raise AssertionError("the main path launched the frame kernel's "
-                             f"group form: {launches}")
 
     # Kernel vs plain at the demo shape, on the demo scene the CLI loaded.
     cfg = RenderConfig(width=1024, height=768, max_refract_depth=5,
@@ -767,43 +732,28 @@ def main() -> int:
     diff = image_diff(np, img_k, img_p)
     check_image("demo 1024x768 kernel vs plain", diff)
     frame_err = diff["max_abs_err"]
-    group_diff = image_diff(np, fused_radiance_group(demo, scal, cfg), img_p)
-    check_image("demo 1024x768 rt_frame_group (8 lanes) vs plain", group_diff)
-    group_err = group_diff["max_abs_err"]
     kernel_lines = built.log.splitlines()
     for i, line in enumerate(kernel_lines):
-        m = re.search(r"_Z\d+(rt_frame(?:_tiles)?(?:_group)?_kernel)I(\w*?)EEv",
-                      line)
+        m = re.search(r"_Z\d+(rt_frame(?:_tiles)?_kernel)ILi(\d+)EEv", line)
         if "Compiling entry function" in line and m:
-            targs = [int(x) for x in re.findall(r"Li(\d+)E", m.group(2) + "E")]
-            lanes = targs[0] if "_group" in m.group(1) else 1
-            walk = "supers" if targs[-1] == 1 else "flat"
-            log(f"  ptxas -v, {m.group(1)} ({lanes} lane(s) a ray, {walk} "
-                "walk): "
+            walk = "supers" if m.group(2) == "1" else "flat"
+            log(f"  ptxas -v, {m.group(1)} ({walk} walk): "
                 + " | ".join(x.strip() for x in kernel_lines[i + 2:i + 4]))
     occupancy = {}
-    for form in ("thread", "group8", "group4"):
-        for walk in ("flat", "supers"):
-            occ = frame_occupancy(form, walk, dev)
-            occupancy[f"{form} {walk}"] = occ
-            log(f"  occupancy, frame kernel {form} ({walk} walk): "
-                f"{occ['blocks_per_sm']} blocks of "
-                f"{occ['threads_per_block']} = {occ['warps_per_sm']} warps "
-                f"per SM, {occ['registers']} registers, {occ['local_bytes']}"
-                f" B local a thread [{card}]")
+    for walk in ("flat", "supers"):
+        occ = frame_occupancy(walk, dev)
+        occupancy[walk] = occ
+        log(f"  occupancy, frame kernel ({walk} walk): "
+            f"{occ['blocks_per_sm']} blocks of "
+            f"{occ['threads_per_block']} = {occ['warps_per_sm']} warps "
+            f"per SM, {occ['registers']} registers, {occ['local_bytes']}"
+            f" B local a thread [{card}]")
     plain_ms = cuda_ms(torch, lambda: fused_radiance_plain(demo, scal, cfg), 1)
     cfg_l = RenderConfig(width=1920, height=1080, max_refract_depth=4,
                          scene_path=paths["large"][0],
                          envmap_path=paths["large"][1])
     large = scene_from_jax(load_scene(cfg_l)[0], dev)
     cfg_4 = cfg.replace(spp=4)
-    # The main path's frames, demo and large: rt_frame bit-equal to its
-    # group form at 8 and 4 lanes.
-    for tag, sc, c in (("demo 1024x768", demo, cfg),
-                       ("large 1920x1080", large, cfg_l)):
-        sc_c = build_scalars(orbit_camera(0.01, c), c, sample_offsets(1), dev)
-        same_forms(f"{tag} (walk {walk_of(sc)})", sc, sc_c, c,
-                   fused_radiance(sc, sc_c, c))
     # Every file the pipelined loop wrote equals a frame-by-frame render:
     # the .npy bit for bit, the PNG byte for byte (written again here from
     # the frame's to_u8).
@@ -845,29 +795,23 @@ def main() -> int:
     if rc != 0 or got != 3 or not frame_ev:
         raise AssertionError("--profile: the trace does not name the frame "
                              "kernel")
-    frame_rows = {}  # cell -> kernel ms per form, bound, work levels
-    forms = (("rt_frame", fused_radiance),
-             ("rt_frame_group 8", lambda *a: fused_radiance_group(*a, 8)),
-             ("rt_frame_group 4", lambda *a: fused_radiance_group(*a, 4)))
+    frame_rows = {}  # cell -> kernel ms, bound, work levels
     for tag, sc, c in (("demo", demo, cfg), ("demo spp 4", demo, cfg_4),
                        ("large", large, cfg_l)):
         cam = orbit_camera(0.01, c)
         sc_c = build_scalars(cam, c, sample_offsets(c.spp), dev)
-        # In turns: the forms forward, then back.
-        times = {name: [] for name, _ in forms}
-        for name, fn in forms + forms[::-1]:
-            times[name].append(cuda_ms(torch, lambda: fn(sc, sc_c, c), 10))
-        ms = {name: sum(t) / len(t) for name, t in times.items()}
+        runs_ms = [cuda_ms(torch, lambda: fused_radiance(sc, sc_c, c), 10)
+                   for _ in range(2)]
+        ms = sum(runs_ms) / len(runs_ms)
         levels = frame_traversal_work(sc, c, cam, dev)
         b = bounds.frame_bound(sc, c, levels)
-        frame_rows[tag] = {"ms": ms["rt_frame"], "forms_ms": times,
-                           "bound": b, "levels": levels}
+        frame_rows[tag] = {"ms": ms, "runs_ms": runs_ms, "bound": b,
+                           "levels": levels}
         log(f"  {tag} {c.width}x{c.height} {c.max_refract_depth}/"
             f"{c.max_reflect_depth} bounces spp {c.spp}, walk {walk_of(sc)}: "
-            + ", ".join(f"{name} {t[0]:.4f}, {t[1]:.4f} ms "
-                        f"({b['bound_ms'] / ms[name]:.1%} of the bound)"
-                        for name, t in times.items())
-            + f" in turns; bound {b['bound_ms']:.4f} ms by "
+            f"rt_frame {runs_ms[0]:.4f}, {runs_ms[1]:.4f} ms "
+            f"({b['bound_ms'] / ms:.1%} of the bound); bound "
+            f"{b['bound_ms']:.4f} ms by "
             f"{b['bound_by']} ({b['ops']} FP32 ops, {b['bytes']} bytes; "
             f"{b['work']['rays']} rays) [{card}]")
     log(f"  demo plain (eager integrator, same shape) {plain_ms:.1f} ms")
@@ -1689,13 +1633,6 @@ def main() -> int:
         check_image(f"frame_tiles shard {b} of 4, demo 1024x768, vs plain",
                     diff)
         tiles_err = max(tiles_err, diff["max_abs_err"])
-        for lanes in (8, 4):  # the group form's pixel-DP entry
-            if not torch.equal(frame_tiles_group(demo, scal_d, cfg, 4, b,
-                                                 n_ld, n_td, lanes), got):
-                raise AssertionError(f"frame_tiles_group ({lanes} lanes) "
-                                     f"differs from frame_tiles on shard {b}")
-    log("  frame_tiles_group at 8 and 4 lanes: the 4 demo shards bit-equal "
-        "to frame_tiles'")
     log(f"  frame_tiles plain, the 4 shards of the demo frame: "
         f"{tiles_plain_ms:.1f} ms; max abs err of the kernel's shards "
         f"{tiles_err:.3e}")
@@ -1935,32 +1872,16 @@ def main() -> int:
                                                vt_words["woop"]),
            "round_fold": fold_bound,
            "frame_tiles": frame_rows["demo"]["bound"],
-           "frame_group": frame_rows["demo"]["bound"],
            "stall": {"bound_ms": sum(bounds.stall_bound(
                v, 64, sm_clock)["bound_ms"] for v in STALL_VARIANTS),
                      "bound_by": "operations"}}
-    demo_forms = {name: sum(t) / len(t)
-                  for name, t in frame_rows["demo"]["forms_ms"].items()}
     kern = [{"name": "frame", "entry": "rt_frame", "route": "cuda",
              "source": "refraction_tpu_torch/csrc/frame.cu",
              "replaces": "refraction_tpu/kernels/framekernel.py:106",
              "launches": launches["frame"], "max_abs_err": frame_err,
              "ms": frame_ms, "plain_ms": plain_ms,
              "timed": "demo 1024x768 5/2 vs the eager integrator; the mean "
-                      "of two turns with the other forms (10 launches each)"},
-            {"name": "frame_group", "entry": "rt_frame_group",
-             "route": "cuda",
-             "source": "refraction_tpu_torch/csrc/frame.cu + "
-                       "traverse_group.cuh",
-             "replaces": "refraction_tpu/kernels/framekernel.py:106",
-             "launches": launches["frame_group"],
-             "max_abs_err": group_err,
-             "ms": demo_forms["rt_frame_group 8"], "plain_ms": plain_ms,
-             "ms_4_lanes": demo_forms["rt_frame_group 4"],
-             "timed": "the group form (8 lanes a ray; ms_4_lanes: 4), an "
-                      "instrument on no main path (launches 0 there): demo "
-                      "1024x768 5/2 in turns with rt_frame, its image "
-                      "bit-equal to rt_frame's; bound: the frame's"},
+                      "of two runs of 10 launches"},
             {"name": "frame_tiles", "entry": "rt_frame_tiles",
              "route": "cuda",
              "source": "refraction_tpu_torch/csrc/frame.cu",
@@ -2077,7 +1998,7 @@ def main() -> int:
         # kernel's 48x8 product alone would be one torch.matmul).
         k.update(bound_ms=bnd[k["name"]]["bound_ms"],
                  bound_by=bnd[k["name"]]["bound_by"], library_ms=None)
-    frame_cells = {tag: {"ms": r["ms"], "forms_ms": r["forms_ms"],
+    frame_cells = {tag: {"ms": r["ms"], "runs_ms": r["runs_ms"],
                          "bound_ms": r["bound"]["bound_ms"],
                          "bound_by": r["bound"]["bound_by"],
                          "work": r["bound"]["work"]}

@@ -49,20 +49,9 @@
 // warp covers a compact 16x2 patch of similar rays; the stack lives in
 // local memory (L1-resident).
 //
-// The group form (rt_frame_group, rt_frame_tiles_group; instruments on no
-// main path; PERF.md §6 row 1): each ray walked by a group of 4 or 8
-// lanes of one warp (traverse_group.cuh), every lane of the group running
-// the pixel's stack and shading on identical values, lane 0 writing the
-// pixel; a warp on a compact 2x2 (8 lanes) or 4x2 (4 lanes) patch, a
-// block of 128 threads four warps. It visits the one-thread walk's boxes
-// and triangles in the same order, so its image is this kernel's bit for
-// bit. It cut the slowest tile's chain about 2.2x (demo 0.126 -> 0.057 ms
-// alone) but ran 2.4-3.8x slower per frame at every cell measured: the
-// kernel is bound by latency, not by instruction throughput, and a group
-// keeps 32 / G walks in flight a warp instead of 32, at 16-20 instead of
-// 28-32 warps per SM (94-128 registers): an SM holds 13-14x (8 lanes) or
-// 6-7x (4 lanes) fewer walks for a chain cut about 2x. Hence this kernel
-// keeps one thread per pixel.
+// A group of 4 or 8 lanes walking each ray was measured and lost
+// 2.4-3.8x at every cell (PERF.md §6 row 1): the kernel is bound by the
+// latency of its walks, and a group keeps fewer walks in flight an SM.
 //
 // Pixel-DP (parallel/sharding.make_fused_sharded_renderer): the second
 // entry, rt_frame_tiles, renders n_local global 32x32 tiles with ids
@@ -87,22 +76,19 @@
 #include "envmap.cuh"
 #include "shade.cuh"
 #include "traverse_f2b.cuh"
-#include "traverse_group.cuh"
 
 #define RT_MAX_STACK 8
 #define RT_TILE 32  // pixel-DP tile edge (framekernel.py TILE_H = TILE_W)
-#define RT_GROUP_THREADS 128
 
 struct RtRay {
   float ox, oy, oz, dx, dy, dz, w, cull;  // cull: +1 outside, -1 inside
   int count;
 };
 
-// Radiance of one pixel: spp samples of its bounce tree, averaged.
-// trace(ox, oy, oz, dx, dy, dz, cull, tmin, tmax, any_hit) is the closest
-// hit (RtHit) of one ray.
-template <typename Trace>
-__device__ __forceinline__ float3 rt_pixel(const Trace& trace,
+// Radiance of one pixel: spp samples of its bounce tree, averaged; each
+// ray's closest hit is traverse_f2b.cuh's walk WALK.
+template <int WALK>
+__device__ __forceinline__ float3 rt_pixel(const RtScene& scene,
                                            const float* __restrict__ sc,
                                            const float* __restrict__ env,
                                            int px, int py, int width,
@@ -134,9 +120,9 @@ __device__ __forceinline__ float3 rt_pixel(const Trace& trace,
       const RtRay r = stack[--sp];
       const bool primary = r.count == 0;
       const bool at_cap = r.count == max_refract;
-      const RtHit h = trace(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.cull,
-                            primary ? tmin_p : tmin_s,
-                            primary ? tmax_p : tmax_s, at_cap);
+      const RtHit h = rt_closest_hit<WALK>(
+          scene, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.cull,
+          primary ? tmin_p : tmin_s, primary ? tmax_p : tmax_s, at_cap);
       if (h.idx < 0) {
         if (r.w > 0.0f) {  // miss shader (RayTracing.hlsl:127-137)
           const int f = rt_env_texel(r.dx, r.dy, r.dz, env_h, env_w);
@@ -188,32 +174,16 @@ __device__ __forceinline__ float3 rt_pixel(const Trace& trace,
         cluster_size / sub_tris, sub_tris                                     \
   }
 
-// ---- the one-thread form: rt_frame, rt_frame_tiles (the main path) ----
+// ---- rt_frame, rt_frame_tiles ----------------------------------------
 
-// One thread per pixel, traverse_f2b.cuh's walk; block (16, 8), a warp on
-// a compact 16x2 patch; the stack in local memory (L1-resident).
-template <int WALK>
-__device__ __forceinline__ float3 rt_thread_pixel(
-    const RtScene& scene, const float* __restrict__ sc,
-    const float* __restrict__ env, int px, int py, int width, int height,
-    int spp, float inv_spp, int max_refract, int max_reflect, int env_h,
-    int env_w) {
-  auto trace = [&](float ox, float oy, float oz, float dx, float dy,
-                   float dz, float cull, float tmin, float tmax,
-                   bool any_hit) {
-    return rt_closest_hit<WALK>(scene, ox, oy, oz, dx, dy, dz, cull, tmin,
-                                tmax, any_hit);
-  };
-  return rt_pixel(trace, sc, env, px, py, width, height, spp, inv_spp,
-                  max_refract, max_reflect, env_h, env_w);
-}
-
+// One thread per pixel; block (16, 8), a warp on a compact 16x2 patch; the
+// stack in local memory (L1-resident).
 template <int WALK>
 __global__ void __launch_bounds__(128) rt_frame_kernel(RT_FRAME_PARAMS) {
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
-  const float3 c = rt_thread_pixel<WALK>(
+  const float3 c = rt_pixel<WALK>(
       RT_SCENE, sc, env, px, py, width, height, spp, inv_spp, max_refract,
       max_reflect, env_h, env_w);
   float* o = out + 3 * ((size_t)py * width + px);
@@ -251,9 +221,8 @@ __global__ void __launch_bounds__(128) rt_frame_tiles_kernel(
   const int py = ty * RT_TILE + ly;
   float3 c = make_float3(0.0f, 0.0f, 0.0f);
   if (tile < n_tiles_real && px < width && py < height) {
-    c = rt_thread_pixel<WALK>(RT_SCENE, sc, env, px, py, width, height, spp,
-                              inv_spp, max_refract, max_reflect, env_h,
-                              env_w);
+    c = rt_pixel<WALK>(RT_SCENE, sc, env, px, py, width, height, spp,
+                       inv_spp, max_refract, max_reflect, env_h, env_w);
   }
   float* o = out + 3 * (((size_t)j * RT_TILE + ly) * RT_TILE + lx);
   o[0] = c.x;
@@ -279,168 +248,17 @@ extern "C" int rt_frame_tiles(RT_FRAME_PARAMS, int tile_stride,
   return (int)cudaGetLastError();
 }
 
-// ---- the group form: rt_frame_group, rt_frame_tiles_group (instruments) -
-
-// A group kernel's pixel patch: a warp covers WX x 2 pixels (32 / G
-// groups), a one-dimensional block of 128 threads 2 x 2 warps, BX x BY.
-template <int G>
-struct RtPatch {
-  static constexpr int WX = 16 / G, WY = 2, BX = 2 * WX, BY = 2 * WY;
-  static_assert(RT_GROUP_THREADS == 128 && RT_TILE % BX == 0 &&
-                    RT_TILE % BY == 0,
-                "four warps per block, whole blocks per tile");
-  // The pixel of the calling thread's group inside its block.
-  static __device__ __forceinline__ int2 at() {
-    const int grp = (int)threadIdx.x / G, per_warp = 32 / G;
-    const int w = grp / per_warp, q = grp % per_warp;
-    return make_int2((w & 1) * WX + q % WX, (w >> 1) * WY + q / WX);
-  }
-};
-
-template <int G, int WALK>
-__device__ __forceinline__ float3 rt_group_pixel(
-    const RtScene& scene, const RtGroup<G>& g, const float* __restrict__ sc,
-    const float* __restrict__ env, int px, int py, int width, int height,
-    int spp, float inv_spp, int max_refract, int max_reflect, int env_h,
-    int env_w) {
-  auto trace = [&](float ox, float oy, float oz, float dx, float dy,
-                   float dz, float cull, float tmin, float tmax,
-                   bool any_hit) {
-    return rt_group_closest_hit<G, WALK>(scene, g, ox, oy, oz, dx, dy, dz,
-                                         cull, tmin, tmax, any_hit);
-  };
-  return rt_pixel(trace, sc, env, px, py, width, height, spp, inv_spp,
-                  max_refract, max_reflect, env_h, env_w);
-}
-
-template <int G, int WALK>
-__global__ void __launch_bounds__(RT_GROUP_THREADS)
-    rt_frame_group_kernel(RT_FRAME_PARAMS) {
-  const RtGroup<G> g = rt_group<G>();
-  const int2 at = RtPatch<G>::at();
-  const int px = blockIdx.x * RtPatch<G>::BX + at.x;
-  const int py = blockIdx.y * RtPatch<G>::BY + at.y;
-  if (px >= width || py >= height) return;  // the whole group
-  const float3 c = rt_group_pixel<G, WALK>(
-      RT_SCENE, g, sc, env, px, py, width, height, spp, inv_spp, max_refract,
-      max_reflect, env_h, env_w);
-  if (g.lane == 0) {
-    float* o = out + 3 * ((size_t)py * width + px);
-    o[0] = c.x;
-    o[1] = c.y;
-    o[2] = c.z;
-  }
-}
-
-template <int G, int WALK>
-__global__ void __launch_bounds__(RT_GROUP_THREADS)
-    rt_frame_tiles_group_kernel(RT_FRAME_PARAMS, int tile_stride,
-                                int tile_base, int n_tiles_real) {
-  const RtGroup<G> g = rt_group<G>();
-  const int2 at = RtPatch<G>::at();
-  const int lx = blockIdx.x * RtPatch<G>::BX + at.x;  // 0..31 in the tile
-  const int ly = blockIdx.y * RtPatch<G>::BY + at.y;
-  const int j = blockIdx.z;
-  const int tile = j * tile_stride + tile_base;
-  const int tiles_x = (width + RT_TILE - 1) / RT_TILE;
-  const int ty = tile / tiles_x;
-  const int px = (tile - ty * tiles_x) * RT_TILE + lx;
-  const int py = ty * RT_TILE + ly;
-  float3 c = make_float3(0.0f, 0.0f, 0.0f);
-  if (tile < n_tiles_real && px < width && py < height) {  // the whole group
-    c = rt_group_pixel<G, WALK>(RT_SCENE, g, sc, env, px, py, width, height,
-                                spp, inv_spp, max_refract, max_reflect,
-                                env_h, env_w);
-  }
-  if (g.lane == 0) {
-    float* o = out + 3 * (((size_t)j * RT_TILE + ly) * RT_TILE + lx);
-    o[0] = c.x;
-    o[1] = c.y;
-    o[2] = c.z;
-  }
-}
-
-template <int G>
-static int rt_group_launch(RT_FRAME_PARAMS, int tile_stride, int tile_base,
-                           int n_local, int n_tiles_real,
-                           cudaStream_t stream) {
-  using P = RtPatch<G>;
-  if (n_local < 0) {  // the whole frame (rt_frame_group)
-    const dim3 grid((width + P::BX - 1) / P::BX,
-                    (height + P::BY - 1) / P::BY);
-    if (n_supers > 0) {
-      rt_frame_group_kernel<G, RT_WALK_SUPERS>
-          <<<grid, RT_GROUP_THREADS, 0, stream>>>(RT_FRAME_ARGS);
-    } else {
-      rt_frame_group_kernel<G, RT_WALK_FLAT>
-          <<<grid, RT_GROUP_THREADS, 0, stream>>>(RT_FRAME_ARGS);
-    }
-  } else {
-    const dim3 grid(RT_TILE / P::BX, RT_TILE / P::BY, n_local);
-    if (n_supers > 0) {
-      rt_frame_tiles_group_kernel<G, RT_WALK_SUPERS>
-          <<<grid, RT_GROUP_THREADS, 0, stream>>>(
-              RT_FRAME_ARGS, tile_stride, tile_base, n_tiles_real);
-    } else {
-      rt_frame_tiles_group_kernel<G, RT_WALK_FLAT>
-          <<<grid, RT_GROUP_THREADS, 0, stream>>>(
-              RT_FRAME_ARGS, tile_stride, tile_base, n_tiles_real);
-    }
-  }
-  return (int)cudaGetLastError();
-}
-
-static int rt_group_dispatch(int lanes, RT_FRAME_PARAMS, int tile_stride,
-                             int tile_base, int n_local, int n_tiles_real,
-                             cudaStream_t stream) {
-  if (lanes == 8)
-    return rt_group_launch<8>(RT_FRAME_ARGS, tile_stride, tile_base, n_local,
-                              n_tiles_real, stream);
-  if (lanes == 4)
-    return rt_group_launch<4>(RT_FRAME_ARGS, tile_stride, tile_base, n_local,
-                              n_tiles_real, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
-// rt_frame with `lanes` (4 or 8) lanes a ray: the same image.
-extern "C" int rt_frame_group(int lanes, RT_FRAME_PARAMS, void* stream) {
-  return rt_group_dispatch(lanes, RT_FRAME_ARGS, 1, 0, -1, 0,
-                           (cudaStream_t)stream);
-}
-
-// rt_frame_tiles with `lanes` lanes a ray: the same tiles.
-extern "C" int rt_frame_tiles_group(int lanes, RT_FRAME_PARAMS,
-                                    int tile_stride, int tile_base,
-                                    int n_local, int n_tiles_real,
-                                    void* stream) {
-  if (n_local < 1) return (int)cudaSuccess;
-  return rt_group_dispatch(lanes, RT_FRAME_ARGS, tile_stride, tile_base,
-                           n_local, n_tiles_real, (cudaStream_t)stream);
-}
-
-// ---- occupancy of the full-frame kernels ------------------------------
+// ---- occupancy of rt_frame_kernel -----------------------------------
 
 // out[0..3] = resident blocks per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers a thread,
-// local memory bytes a thread, threads a block; of the full-frame kernel
-// with `lanes` lanes a ray (1: rt_frame; 4, 8: rt_frame_group) and walk
+// local memory bytes a thread, threads a block; of rt_frame_kernel in walk
 // RT_WALK_FLAT or RT_WALK_SUPERS.
-extern "C" int rt_frame_occupancy(int lanes, int walk, int* out) {
-  const bool sup = walk == RT_WALK_SUPERS;
-  const void* fn = nullptr;
-  if (lanes == 1) {
-    fn = sup ? (const void*)rt_frame_kernel<RT_WALK_SUPERS>
-             : (const void*)rt_frame_kernel<RT_WALK_FLAT>;
-  } else if (lanes == 4) {
-    fn = sup ? (const void*)rt_frame_group_kernel<4, RT_WALK_SUPERS>
-             : (const void*)rt_frame_group_kernel<4, RT_WALK_FLAT>;
-  } else if (lanes == 8) {
-    fn = sup ? (const void*)rt_frame_group_kernel<8, RT_WALK_SUPERS>
-             : (const void*)rt_frame_group_kernel<8, RT_WALK_FLAT>;
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int threads = lanes == 1 ? 128 : RT_GROUP_THREADS;
+extern "C" int rt_frame_occupancy(int walk, int* out) {
+  const void* fn = walk == RT_WALK_SUPERS
+                       ? (const void*)rt_frame_kernel<RT_WALK_SUPERS>
+                       : (const void*)rt_frame_kernel<RT_WALK_FLAT>;
+  const int threads = 128;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;

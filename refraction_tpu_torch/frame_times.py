@@ -33,29 +33,23 @@ prints one JSON line for the package it imports:
   replaced by a no-op;
 - the card line (nvidia-smi name and power limit).
 
-The frame kernel's forms and tiles, in place of that breakdown:
+The frame kernel alone on one cell, in place of that breakdown:
 
-    python -m refraction_tpu_torch.frame_times --cell large --forms --tiles
+    python -m refraction_tpu_torch.frame_times --cell large [--tiles]
 
 - ``--cell NAME`` takes one of the procedural cells of `CELLS` (the
   stand-ins chip_smoke.py and bench.py render: demo, demo_spp4, large,
   headline, ott, config5, spp4) instead of ``--scene`` and the shape
-  flags;
-- ``--forms`` times every form of the kernel the package has
-  (``kernels.framekernel.FORM_LANES``: ``thread``, `fused_radiance`, one
-  thread a pixel; ``group8`` and ``group4``, `fused_radiance_group` with 8
-  and 4 lanes a ray; a package without it, ``thread`` alone) in turns:
-  ROUNDS rounds, the forms in forward then reverse order, each the card's
-  mean ms over LAUNCHES launches behind a spin kernel (`timing.card_ms`).
-  Per form: the times, their median, its share of the frame's bound
-  (`bounds.frame_bound` over `render.frame_traversal_work`), whether its
-  image equals `fused_radiance`'s bit for bit (and the sha256), and its
-  occupancy (`framekernel.frame_occupancy`, where the package has it);
-- ``--tiles`` launches each form's pixel-DP entry (`frame_tiles`,
-  `frame_tiles_group`) once for each 32x32 tile of the frame alone
-  (``n_local`` 1; the card's time, `timing.device_ms`; the 8 slowest take
-  the best of 5) and prints the slowest tile, its id and the median
-  tile.
+  flags, and times `fused_radiance` (``rt_frame``): ROUNDS rounds, each
+  the card's mean ms over LAUNCHES launches behind a spin kernel
+  (`timing.card_ms`); the times, their median, its share of the frame's
+  bound (`bounds.frame_bound` over `render.frame_traversal_work`), the
+  image's sha256 and the kernel's occupancy
+  (`framekernel.frame_occupancy`);
+- ``--tiles`` launches the pixel-DP entry (`frame_tiles`) once for each
+  32x32 tile of the frame alone (``n_local`` 1; the card's time,
+  `timing.device_ms`; the 8 slowest take the best of 5) and prints the
+  slowest tile, its id and the median tile.
 
 It uses only the package's long-standing entry points (``scene.load_scene``,
 ``scene.build_scene``, ``scene.scene_from_jax``,
@@ -63,7 +57,8 @@ It uses only the package's long-standing entry points (``scene.load_scene``,
 ``frame_tiles``, ``camera.generate_rays``,
 ``integrator.render_pixels_mega``, ``render.frame_traversal_work``,
 ``bounds.frame_bound``, ``run.to_u8`` / ``write_png`` / ``main`` and its
-per-frame log line) and the measurement helpers of ``timing.py``, so the
+per-frame log line; with ``--cell``, ``kernels.framekernel.walk_of`` and
+``frame_occupancy(walk, device)``) and the measurement helpers of ``timing.py``, so the
 same two files, copied beside another checkout of the package, time that
 checkout's kernels: comparisons run both in one call, in turns.
 ``--device cuda`` only: there is no CPU path.
@@ -72,7 +67,6 @@ checkout's kernels: comparisons run both in one call, in turns.
 from __future__ import annotations
 
 import argparse
-import functools
 import hashlib
 import json
 import logging
@@ -221,58 +215,35 @@ def cell_scene(name: str, device) -> tuple:
     return scene_from_jax(host, device), cfg
 
 
-def frame_forms() -> dict:
-    """The package's forms of the kernel: name -> (full frame, pixel-DP
-    entry), each called as `fused_radiance` / `frame_tiles` are; the
-    one-thread form alone where the package has no `FORM_LANES`."""
-    lanes = getattr(framekernel, "FORM_LANES", {"thread": 1})
-    return {name: (fused_radiance, frame_tiles) if g == 1 else
-            (functools.partial(framekernel.fused_radiance_group, lanes=g),
-             functools.partial(framekernel.frame_tiles_group, lanes=g))
-            for name, g in lanes.items()}
-
-
-def time_forms(scene, cfg, scalars, device) -> dict:
-    """Each form's card ms in turns, its image against fused_radiance's,
-    its share of the frame's bound and its occupancy (see the module
-    docstring)."""
-    forms = frame_forms()
-    ref = fused_radiance(scene, scalars, cfg)
-    out = {}
-    for name, (fn, _) in forms.items():
-        img = fn(scene, scalars, cfg)
-        torch.cuda.synchronize(device)
-        out[name] = {"ms": [], "bit_equal": bool(torch.equal(img, ref)),
-                     "sha256": hashlib.sha256(
-                         img.cpu().numpy().tobytes()).hexdigest()}
-    names = list(forms)
-    for r in range(ROUNDS):
-        for name in (names if r % 2 == 0 else names[::-1]):
-            fn = forms[name][0]
-            out[name]["ms"].append(
-                card_ms(lambda: fn(scene, scalars, cfg), LAUNCHES, device))
+def time_kernel(scene, cfg, scalars, device) -> dict:
+    """The frame kernel's card ms in ROUNDS rounds, their median, its share
+    of the frame's bound, the image's sha256 and the kernel's occupancy
+    (see the module docstring)."""
+    img = fused_radiance(scene, scalars, cfg)
+    torch.cuda.synchronize(device)
+    ms = [card_ms(lambda: fused_radiance(scene, scalars, cfg), LAUNCHES,
+                  device) for _ in range(ROUNDS)]
     b = bounds.frame_bound(scene, cfg, frame_traversal_work(
         scene, cfg, orbit_camera(0.01, cfg), device))
-    occupancy = getattr(framekernel, "frame_occupancy", None)
     walk = framekernel.walk_of(scene)
-    for name, row in out.items():
-        row["median_ms"] = statistics.median(row["ms"])
-        row["share_of_bound"] = b["bound_ms"] / row["median_ms"]
-        if occupancy is not None:
-            row["occupancy"] = occupancy(name, walk, device)
-    return {"forms": out, "walk": walk,
+    median = statistics.median(ms)
+    out = {"ms": ms, "median_ms": median,
+           "share_of_bound": b["bound_ms"] / median,
+           "sha256": hashlib.sha256(img.cpu().numpy().tobytes()).hexdigest(),
+           "occupancy": framekernel.frame_occupancy(walk, device)}
+    return {"kernel": out, "walk": walk,
             "bound": {k: b[k] for k in ("bound_ms", "bound_by", "ops",
                                         "bytes", "work")}}
 
 
-def tile_times(tiles_fn, scene, cfg, scalars, device) -> dict:
-    """One-tile launches of the pixel-DP entry ``tiles_fn`` over the
+def tile_times(scene, cfg, scalars, device) -> dict:
+    """One-tile launches of the pixel-DP entry `frame_tiles` over the
     frame's tiles: the slowest (its id) and the median, the card's ms."""
     n_tiles = tile_grid(cfg)[1]
 
     def one_tile(t):
-        return device_ms(lambda: tiles_fn(scene, scalars, cfg, n_tiles, t, 1,
-                                          n_tiles), device)
+        return device_ms(lambda: frame_tiles(scene, scalars, cfg, n_tiles, t,
+                                             1, n_tiles), device)
 
     one_tile(0)
     one = {t: one_tile(t) for t in range(n_tiles)}
@@ -292,9 +263,7 @@ def main(argv=None) -> int:
     for flag in ("--width", "--height", "--bounces", "--spp"):
         p.add_argument(flag, type=int)
     p.add_argument("--cell", choices=sorted(CELLS),
-                   help="a procedural cell instead of --scene and the shape")
-    p.add_argument("--forms", action="store_true",
-                   help="time the frame kernel's forms in turns")
+                   help="time the frame kernel alone on a procedural cell")
     p.add_argument("--tiles", action="store_true",
                    help="one-tile launches: the slowest and median tile")
     p.add_argument("--label", default="", help="name printed with the result")
@@ -307,17 +276,15 @@ def main(argv=None) -> int:
         scene = scene_from_jax(load_scene(cfg)[0], device)
     scalars = build_scalars(orbit_camera(0.01, cfg), cfg,
                             sample_offsets(cfg.spp), device)
-    if args.forms or args.tiles:
+    if args.cell or args.tiles:
         res = {"label": args.label, "cell": args.cell,
                "shape": [cfg.width, cfg.height, cfg.max_refract_depth,
                          cfg.max_reflect_depth, cfg.spp],
                "tris": scene.num_tris, "clusters": scene.num_clusters}
-        if args.forms:
-            res.update(time_forms(scene, cfg, scalars, device))
+        if args.cell:
+            res.update(time_kernel(scene, cfg, scalars, device))
         if args.tiles:
-            res["one_tile"] = {
-                name: tile_times(tiles_fn, scene, cfg, scalars, device)
-                for name, (_, tiles_fn) in frame_forms().items()}
+            res["one_tile"] = tile_times(scene, cfg, scalars, device)
         res["card"] = card_line(device)
         print(json.dumps(res), flush=True)
         return 0

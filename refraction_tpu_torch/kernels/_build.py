@@ -57,16 +57,8 @@ SIGNATURES = {
     # cluster_size, sub_tris, env_h, env_w, stream
     "rt_frame": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
                  _I, _I, _I, _I, _I, _I, _P],
-    # lanes a ray (4 or 8), then the rt_frame arguments
-    "rt_frame_group": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # lanes a ray (4 or 8), then the rt_frame_tiles arguments
-    "rt_frame_tiles_group": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _F, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _P],
-    # lanes a ray (1: rt_frame; 4, 8: rt_frame_group), walk, int[4] out
-    # (no stream)
-    "rt_frame_occupancy": [_I, _I, _P],
+    # walk (0 flat, 1 supers), int[4] out (no stream)
+    "rt_frame_occupancy": [_I, _P],
     # the rt_frame arguments up to env_w, then tile_stride, tile_base,
     # n_local, n_tiles_real, stream
     "rt_frame_tiles": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,

@@ -23,18 +23,8 @@ wrapper counts its launches per instance beside ``launches``
 (``fused_radiance.walks["supers"]``). A launch that fails raises.
 
 Both entries run one thread per pixel over csrc/traverse_f2b.cuh's walk.
-The group form of the same function, each ray walked by a group of 4 or
-8 lanes of one warp (csrc/traverse_group.cuh), is an instrument on no
-main path: ``fused_radiance_group`` and ``frame_tiles_group`` (each with
-its own launch count) give the images of `fused_radiance` and
-`frame_tiles` bit for bit and are timed against them (PERF.md §6 row 1:
-they lose at every cell). `frame_occupancy` reads a form's resident
-blocks and registers.
-
-The plain twin of the group walk's reduction, for the CPU tests:
-`order_key` (the kernels' key of a float, whose unsigned order is the
-float order) and `group_pair_min` (a sub's least (t, index) over the
-group's lanes, in the kernel's order).
+`frame_occupancy` reads the full-frame kernel's resident blocks and
+registers.
 """
 
 from __future__ import annotations
@@ -65,14 +55,6 @@ from refraction_tpu_torch.tracing import span
 N_BASE_SCALARS = 18
 # Pending-ray stack slots per thread; must equal RT_MAX_STACK in frame.cu.
 MAX_STACK = 8
-# Lanes that walk one ray in the group form by default (rt_frame_group,
-# rt_frame_tiles_group also take 4); 32 / GROUP pixels a warp.
-GROUP = 8
-# The kernel's forms by name, with their lanes a ray (1: rt_frame).
-FORM_LANES = {"thread": 1, "group8": 8, "group4": 4}
-# The kernels' order key of a float that sorts after every other
-# (traverse_group.cuh RT_NO_KEY).
-NO_KEY = 0xFFFFFFFF
 # Tile edge of the pixel-DP entry; must equal RT_TILE in frame.cu.
 TILE = 32
 
@@ -157,111 +139,39 @@ def fused_radiance(scene, scalars: torch.Tensor,
     writes the image directly. The bounce caps, ray intervals, ior and r0
     are runtime values; the latter come from ``scalars``.
     """
-    return _radiance(fused_radiance, "rt_frame", (), scene, scalars, cfg)
+    if scalars.device.type == "cpu":
+        return fused_radiance_plain(scene, scalars, cfg)
+    if scalars.device.type != "cuda":
+        raise ValueError("fused_radiance: unsupported device "
+                         f"{scalars.device}")
+    with span("rt.launch"):
+        _check_frame_args(scene, scalars, cfg)
+        out = torch.empty(cfg.height, cfg.width, 3, dtype=torch.float32,
+                          device=scalars.device)
+        launch("rt_frame", scalars.device,
+               *_frame_args(scene, scalars, cfg, out))
+    fused_radiance.launches += 1
+    fused_radiance.walks[walk_of(scene)] += 1
+    return out
 
 
 fused_radiance.launches = 0
 fused_radiance.walks = {"flat": 0, "supers": 0}
 
 
-def _radiance(wrapper, entry: str, lead: tuple, scene, scalars,
-              cfg) -> torch.Tensor:
-    """The plain version on CPU tensors; on CUDA one launch of the
-    full-frame entry ``entry`` (arguments ``lead``, then rt_frame's),
-    counted on ``wrapper``, in all and under its walk instance."""
-    if scalars.device.type == "cpu":
-        return fused_radiance_plain(scene, scalars, cfg)
-    if scalars.device.type != "cuda":
-        raise ValueError(f"{wrapper.__name__}: unsupported device "
-                         f"{scalars.device}")
-    with span("rt.launch"):
-        _check_frame_args(scene, scalars, cfg)
-        out = torch.empty(cfg.height, cfg.width, 3, dtype=torch.float32,
-                          device=scalars.device)
-        launch(entry, scalars.device, *lead,
-               *_frame_args(scene, scalars, cfg, out))
-    wrapper.launches += 1
-    wrapper.walks[walk_of(scene)] += 1
-    return out
-
-
-def _check_lanes(lanes: int) -> None:
-    if lanes not in (4, 8):
-        raise ValueError(f"group form: lanes a ray {lanes}, want 4 or 8")
-
-
-def fused_radiance_group(scene, scalars: torch.Tensor, cfg: RenderConfig,
-                         lanes: int = GROUP) -> torch.Tensor:
-    """`fused_radiance`'s image, bit for bit, from the group form
-    (``rt_frame_group``: ``lanes`` lanes of a warp walk each ray), an
-    instrument on no main path. The plain version on CPU tensors."""
-    _check_lanes(lanes)
-    return _radiance(fused_radiance_group, "rt_frame_group", (lanes,),
-                     scene, scalars, cfg)
-
-
-fused_radiance_group.launches = 0
-fused_radiance_group.walks = {"flat": 0, "supers": 0}
-
-
-def frame_occupancy(form: str, walk: str, device: torch.device) -> dict:
+def frame_occupancy(walk: str, device: torch.device) -> dict:
     """Resident blocks and warps per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
-    local memory a thread of the full-frame kernel of ``form`` (a key of
-    `FORM_LANES`) in the ``walk`` instance ("flat" or "supers") on
-    ``device`` (CUDA)."""
+    local memory a thread of the full-frame kernel in the ``walk``
+    instance ("flat" or "supers") on ``device`` (CUDA)."""
     out = (ctypes.c_int * 4)()
     with on_device(device):
-        err = library().rt_frame_occupancy(
-            FORM_LANES[form], 1 if walk == "supers" else 0, out)
+        err = library().rt_frame_occupancy(1 if walk == "supers" else 0, out)
     check(err, "rt_frame_occupancy")
     blocks, regs, local, threads = out
     return {"blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
             "registers": regs, "local_bytes": local,
             "threads_per_block": threads}
-
-
-def order_key(x: torch.Tensor) -> torch.Tensor:
-    """The kernels' order key of float32 ``x`` (traverse_group.cuh
-    rt_order_key) as int64 in [0, 2^32): -0 folded onto +0, then the
-    sign-flip (negatives: every bit inverted; the rest: the sign bit
-    set). For floats that are not NaN, ``a <= b`` exactly when
-    ``order_key(a) <= order_key(b)``; `NO_KEY` sorts after every key."""
-    b = (x.to(torch.float32) + 0.0).view(torch.int32).to(torch.int64)
-    b = b & 0xFFFFFFFF
-    return torch.where(b >= 2 ** 31, b ^ 0xFFFFFFFF, b ^ 0x80000000)
-
-
-def group_pair_min(t: torch.Tensor, hit: torch.Tensor, first: int,
-                   g: int = GROUP):
-    """A sub's least (t, index) over a group of ``g`` lanes, in the
-    kernel's order (traverse_group.cuh visit_sub): ``t`` and ``hit`` are
-    (N, S) over triangles ``first .. first + S - 1`` (hit: the triangle
-    passes Möller–Trumbore and t >= tmin); lane j holds columns j, j + g,
-    ... and keeps the first of its least keys (a strict compare in
-    ascending order), then the group takes the least key and the least
-    index among the lanes holding it. Returns (found (N,) bool, t (N,),
-    idx (N,) int64); t and idx are the winning lane's, 0 and ``first``
-    where nothing was found."""
-    n, s = t.shape
-    keys = torch.where(hit, order_key(t), torch.full_like(t, NO_KEY,
-                                                          dtype=torch.int64))
-    lane_key = torch.full((n, g), NO_KEY, dtype=torch.int64)
-    lane_col = torch.zeros((n, g), dtype=torch.int64)
-    for j in range(g):
-        for col in range(j, s, g):
-            better = keys[:, col] < lane_key[:, j]
-            lane_key[:, j] = torch.where(better, keys[:, col], lane_key[:, j])
-            lane_col[:, j] = torch.where(better, torch.full_like(
-                lane_col[:, j], col), lane_col[:, j])
-    key_min = lane_key.min(dim=1).values
-    col = torch.where(lane_key == key_min[:, None], lane_col,
-                      torch.full_like(lane_col, NO_KEY)).min(dim=1).values
-    found = key_min != NO_KEY
-    col = torch.where(found, col, torch.zeros_like(col))
-    t_win = torch.where(found, t.gather(1, col[:, None])[:, 0],
-                        torch.zeros_like(t[:, 0]))
-    return found, t_win, col + first
 
 
 def _frame_args(scene, scalars, cfg, out) -> tuple:
@@ -344,46 +254,21 @@ def frame_tiles(scene, scalars: torch.Tensor, cfg: RenderConfig,
 
     On CUDA: one launch of the frame kernel's pixel-DP entry on the
     current stream of the tensors' device."""
-    return _tiles(frame_tiles, "rt_frame_tiles", (), scene, scalars, cfg,
-                  tile_stride, tile_base, n_local, n_tiles_real)
-
-
-frame_tiles.launches = 0
-
-
-def _tiles(wrapper, entry: str, lead: tuple, scene, scalars, cfg,
-           tile_stride, tile_base, n_local, n_tiles_real) -> torch.Tensor:
-    """The plain version on CPU tensors; on CUDA one launch of the
-    pixel-DP entry ``entry`` (arguments ``lead``, then rt_frame_tiles'),
-    counted on ``wrapper``."""
     if scalars.device.type == "cpu":
         return frame_tiles_plain(scene, scalars, cfg, tile_stride, tile_base,
                                  n_local, n_tiles_real)
     if scalars.device.type != "cuda":
-        raise ValueError(f"{wrapper.__name__}: unsupported device "
-                         f"{scalars.device}")
+        raise ValueError(f"frame_tiles: unsupported device {scalars.device}")
     with span("rt.launch"):
         _check_frame_args(scene, scalars, cfg)
         _check_tiles(cfg, tile_stride, tile_base, n_local, n_tiles_real)
         out = torch.empty(n_local, TILE, TILE, 3, dtype=torch.float32,
                           device=scalars.device)
-        launch(entry, scalars.device, *lead,
+        launch("rt_frame_tiles", scalars.device,
                *_frame_args(scene, scalars, cfg, out), tile_stride,
                tile_base, n_local, n_tiles_real)
-    wrapper.launches += 1
+    frame_tiles.launches += 1
     return out
 
 
-def frame_tiles_group(scene, scalars: torch.Tensor, cfg: RenderConfig,
-                      tile_stride: int, tile_base: int, n_local: int,
-                      n_tiles_real: int, lanes: int = GROUP) -> torch.Tensor:
-    """`frame_tiles`' buffer, bit for bit, from the group form
-    (``rt_frame_tiles_group``: ``lanes`` lanes of a warp walk each ray), an
-    instrument on no main path. The plain version on CPU tensors."""
-    _check_lanes(lanes)
-    return _tiles(frame_tiles_group, "rt_frame_tiles_group", (lanes,), scene,
-                  scalars, cfg, tile_stride, tile_base, n_local,
-                  n_tiles_real)
-
-
-frame_tiles_group.launches = 0
+frame_tiles.launches = 0

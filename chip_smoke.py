@@ -12,17 +12,21 @@ Phases (any failure raises; nothing is caught):
   0. card name and power limit (nvidia-smi), torch and CUDA versions;
   1. build csrc/*.cu with nvcc;
   2. closest-hit kernel vs the brute force, 2^16 seeded rays, both culls:
-     winners equal on every ray, on two icospheres (flat and supers walks)
-     and on two scenes with equal-t triangle pairs (a cluster of copies of
-     triangles from all over the mesh, appended at the end of the table,
-     whose box is entered first: the lower index must still win);
+     winners equal on every ray, on icospheres of each walk (flat, supers,
+     and roots: 20,480 triangles at clusters of 8, 3 roots) and on scenes
+     with equal-t triangle pairs (a cluster of copies of triangles from all
+     over the mesh, appended at the end of the table, whose box is entered
+     first: the lower index must still win), the roots walk among them;
   3. env kernel vs the gather on a 1024x2048 map: 2^16 directions (80% of
      the weights > 0), then the demo frame's round widths, 786,432 and
      3,145,728 directions with 10% of the weights > 0, and an odd count
      (times: the card's, the launches queued behind a spin kernel);
-  4. frame kernel vs the eager integrator at 256x192 (five cases) and on
-     the 81,920-triangle scene at 160x90, each with the traversal walk it
-     took (flat: at most 32 clusters; supers);
+  4. frame kernel vs the eager integrator at 256x192 (five cases), on
+     the 81,920-triangle scene at 160x90, and on two nested glass shells
+     that take the roots walk: 25,600 triangles at clusters of 8 (100
+     supers under 4 roots) and the benchmark's 1,638,400-triangle shell
+     at its own cluster size and caps (64x36), each with the traversal
+     walk it took (flat: at most 32 clusters; supers; roots);
   5. the CLI with ``--backend cuda`` on the demo configuration (1024x768,
      5/2 bounces, 8 orbit frames, 1,280 triangles) and on the large scene
      (1920x1080, 4 bounces, 4 frames, 81,920 triangles); the frame kernel
@@ -35,7 +39,8 @@ Phases (any failure raises; nothing is caught):
      demo, demo spp 4 and large, and each one's bound (bounds.py: the
      traversal work of the frame's rays);
   6. the round kernel in both layouts on 2^16 lanes (with subnormal
-     weights), per variant: the static layout vs its plain version; the
+     weights), per variant: the static layout vs its plain version, on
+     the demo sphere and on a scene of the roots walk; the
      compacted layout (a shuffled queue of the live lanes) vs its plain
      version after sorting by slot (child slot sets, counts within the
      capacity) and bit for bit vs the static kernel at each slot, then on
@@ -449,8 +454,9 @@ def main() -> int:
     from refraction_tpu_torch.kernels.envmap import (
         env_contribution, env_contribution_plain)
     from refraction_tpu_torch.kernels.framekernel import (
-        build_scalars, frame_occupancy, frame_tiles, frame_tiles_plain,
-        fused_radiance, fused_radiance_plain, tile_grid, walk_of)
+        WALKS, build_scalars, frame_occupancy, frame_tiles,
+        frame_tiles_plain, fused_radiance, fused_radiance_plain, tile_grid,
+        walk_of)
     from refraction_tpu_torch.kernels.intersect import (
         closest_hit, closest_hit_plain)
     from refraction_tpu_torch.kernels.megakernel import (
@@ -471,9 +477,10 @@ def main() -> int:
     from refraction_tpu_torch.render import (
         count_live_rays, frame_traversal_work, sample_offsets)
     from refraction_tpu_torch import profile_rounds
+    from refraction_tpu_torch.io.objmesh import MeshData
     from refraction_tpu_torch.scene import (
         Scene, auto_cluster_size, build_scene, load_instanced, load_scene,
-        scene_from_jax)
+        merge_meshes, scene_from_jax)
     from refraction_tpu_torch import run as cli
     from refraction_tpu_torch import mxu_mt_bench, stallbench
     from refraction_tpu_torch.kernels.mtbench import (
@@ -507,6 +514,22 @@ def main() -> int:
     def device_scene(mesh, env, cluster_size=None):
         cs = cluster_size or auto_cluster_size(mesh.num_tris)
         return scene_from_jax(build_scene(mesh, env, cs)[0], dev)
+
+    def nested_shell(outer, inner):
+        """A glass shell: icosphere ``outer`` (radius 1.2) around an
+        inward-wound icosphere ``inner`` (radius 0.9), as the benchmark's
+        shell_hp mesh (8 and 7) is built."""
+        a, b = make_icosphere(outer, 1.2), make_icosphere(inner, 0.9)
+        flip = [0, 2, 1]
+        return merge_meshes([a, MeshData(b.positions[:, flip],
+                                         -b.normals[:, flip],
+                                         b.uvs[:, flip])])
+
+    def roots_scene(sc):
+        """``sc``, which has to take the roots walk."""
+        if walk_of(sc) != "roots":
+            raise AssertionError(f"walk {walk_of(sc)}, want roots")
+        return sc
 
     def equal_t_scene(mesh, env, cs):
         """The built scene plus one last cluster of copies of cs of its
@@ -542,14 +565,19 @@ def main() -> int:
     o = torch.from_numpy(o_np).to(dev)
     d = torch.from_numpy(d_np).to(dev)
     env_small = make_gradient_envmap(64, 128)
-    ico4 = make_icosphere(4)
+    ico4, ico5 = make_icosphere(4), make_icosphere(5)
     ch_times = None
     cases = [(name, device_scene(mesh, env_small, cs), None)
              for name, mesh, cs in (("icosphere4", ico4, None),
                                     ("icosphere4 cs8", ico4, 8),
-                                    ("cube2", make_cube(2.0), None))]
+                                    ("cube2", make_cube(2.0), None),
+                                    ("icosphere5 cs8", ico5, 8))]
     cases += [(f"icosphere4 cs{cs} + equal-t copies",
                *equal_t_scene(ico4, env_small, cs)) for cs in (1024, 128, 8)]
+    cases += [("icosphere5 cs8 + equal-t copies",
+               *equal_t_scene(ico5, env_small, 8))]
+    roots_sc = roots_scene(cases[3][1])
+    roots_scene(cases[-1][1])
     for name, sc, twins in cases:
         for cull_v in (1.0, -1.0):
             cull = torch.full((n,), cull_v, dtype=torch.float32, device=dev)
@@ -652,7 +680,13 @@ def main() -> int:
               0.6),
              ("icosphere6 81920 tris 160x90", device_scene(
                  make_icosphere(6, 1.2), env_mid),
-              RenderConfig(width=160, height=90, max_refract_depth=4), 0.2)]
+              RenderConfig(width=160, height=90, max_refract_depth=4), 0.2),
+             ("nested shell 25600 tris cs8 128x96", roots_scene(
+                 device_scene(nested_shell(5, 4), env_mid, 8)),
+              RenderConfig(width=128, height=96), 0.35),
+             ("nested shell 1638400 tris 64x36", roots_scene(
+                 device_scene(nested_shell(8, 7), env_mid)),
+              RenderConfig(width=64, height=36), 2.2)]
     for tag, sc, cfg, angle in cases:
         scal = build_scalars(orbit_camera(angle, cfg), cfg,
                              sample_offsets(cfg.spp), dev)
@@ -736,11 +770,11 @@ def main() -> int:
     for i, line in enumerate(kernel_lines):
         m = re.search(r"_Z\d+(rt_frame(?:_tiles)?_kernel)ILi(\d+)EEv", line)
         if "Compiling entry function" in line and m:
-            walk = "supers" if m.group(2) == "1" else "flat"
+            walk = WALKS[int(m.group(2))]
             log(f"  ptxas -v, {m.group(1)} ({walk} walk): "
                 + " | ".join(x.strip() for x in kernel_lines[i + 2:i + 4]))
     occupancy = {}
-    for walk in ("flat", "supers"):
+    for walk in WALKS:
         occ = frame_occupancy(walk, dev)
         occupancy[walk] = occ
         log(f"  occupancy, frame kernel ({walk} walk): "
@@ -831,16 +865,21 @@ def main() -> int:
     subnormal = state[7] < 1e-40
     limits = (1e-3, 1000.0, 1.3, RenderConfig().fresnel_r0)
     variant_err = 0.0
-    for vname, want_reflect, want_children in (
-            ("full", True, True), ("norefl", False, True),
-            ("missonly", False, False)):
-        got = mega_round(sphere, state, limits, want_reflect, want_children)
-        ref = mega_round_plain(sphere, state, limits, want_reflect,
+    # The demo sphere (flat walk) and phase 2's 20,480-triangle sphere at
+    # clusters of 8 (roots walk), each in every variant.
+    round_cases = [(sname, rsc, *v)
+                   for sname, rsc in (("sphere", sphere),
+                                      ("icosphere5 cs8, roots", roots_sc))
+                   for v in (("full", True, True), ("norefl", False, True),
+                             ("missonly", False, False))]
+    for sname, rsc, vname, want_reflect, want_children in round_cases:
+        got = mega_round(rsc, state, limits, want_reflect, want_children)
+        ref = mega_round_plain(rsc, state, limits, want_reflect,
                                want_children)
         torch.cuda.synchronize()
         rad_d = (got.radiance - ref.radiance).abs()
         rad_off = float((rad_d.amax(dim=1) > PIX_TOL).double().mean())
-        msg = f"  {vname}: radiance share>{PIX_TOL:g} {rad_off:.2e}"
+        msg = f"  {sname} {vname}: radiance share>{PIX_TOL:g} {rad_off:.2e}"
         ok = rad_off <= 1 - HIT_AGREE
         err = float(rad_d.max())
         if want_children:
@@ -862,7 +901,8 @@ def main() -> int:
         variant_err = max(variant_err, err)
         log(msg)
         if not ok:
-            raise AssertionError(f"round kernel {vname} disagrees with plain")
+            raise AssertionError(
+                f"round kernel {sname} {vname} disagrees with plain")
 
     # The compacted round kernel on the live lanes of the same state, as a
     # queue in shuffled order, one pixel per slot: against its plain
@@ -888,9 +928,7 @@ def main() -> int:
         return slots, q.state[:, :c][:, order]
 
     queue_err = 0.0
-    for vname, want_reflect, want_children in (
-            ("full", True, True), ("norefl", False, True),
-            ("missonly", False, False)):
+    for sname, rsc, vname, want_reflect, want_children in round_cases:
         w_out = n * (2 if want_reflect else 1)
         outs, rads, pix = [], [], []
         for fn in (mega_round_queue, mega_round_queue_plain):
@@ -898,9 +936,9 @@ def main() -> int:
             outs.append(queue(w_out, w_out) if want_children else None)
             rads.append(torch.zeros(n, 3, dtype=torch.float32, device=dev))
             pix.append(torch.zeros(n, dtype=torch.int32, device=dev))
-            fn(sphere, q_in, limits, want_reflect, want_children, rads[-1],
+            fn(rsc, q_in, limits, want_reflect, want_children, rads[-1],
                pix[-1], outs[-1])
-        static = mega_round(sphere, state, limits, want_reflect,
+        static = mega_round(rsc, state, limits, want_reflect,
                             want_children)
         torch.cuda.synchronize()
         rad_d = (rads[0] - rads[1]).abs()
@@ -910,7 +948,7 @@ def main() -> int:
         ok = (rad_off <= 1 - HIT_AGREE and exact
               and torch.equal(pix[0], pix[1])
               and int(pix[0].sum()) == n_live)
-        msg = (f"  compacted {vname}: {n_live} queued, radiance share>"
+        msg = (f"  compacted {sname} {vname}: {n_live} queued, radiance share>"
                f"{PIX_TOL:g} {rad_off:.2e}, equal to the static kernel's "
                f"{exact}")
         if want_children:
@@ -943,12 +981,13 @@ def main() -> int:
         queue_err = max(queue_err, err)
         log(msg)
         if not ok:
-            raise AssertionError(f"compacted round kernel {vname} disagrees")
+            raise AssertionError(
+                f"compacted round kernel {sname} {vname} disagrees")
         # An empty queue: one launch that adds and appends nothing.
         rad0 = torch.zeros(n, 3, dtype=torch.float32, device=dev)
         pix0 = torch.zeros(n, dtype=torch.int32, device=dev)
         out0 = queue(w_out, w_out) if want_children else None
-        mega_round_queue(sphere, queue(n, n), limits, want_reflect,
+        mega_round_queue(rsc, queue(n, n), limits, want_reflect,
                          want_children, rad0, pix0, out0)
         torch.cuda.synchronize()
         if (bool(rad0.any()) or bool(pix0.any())

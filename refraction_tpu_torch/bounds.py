@@ -104,7 +104,8 @@ def bound(ops: float, nbytes: float, tensor_ops: float = 0) -> dict:
 
 def traversal_ops(work: dict) -> int:
     """FP32 operations of summed traversal_work counts."""
-    boxes = work["super_tests"] + work["cluster_tests"] + work["sub_tests"]
+    boxes = (work["root_tests"] + work["super_tests"] + work["cluster_tests"]
+             + work["sub_tests"])
     return BOX_TEST_OPS * boxes + MT_TEST_OPS * work["mt_tests"]
 
 
@@ -112,7 +113,7 @@ def table_bytes(scene) -> int:
     """Bytes of the traversal's tables (triangles, normals, boxes)."""
     return sum(int(t.numel()) * t.element_size() for t in (
         scene.tri_packed, scene.tri_norm_packed, scene.cluster_bounds,
-        scene.sub_bounds, scene.super_bounds))
+        scene.sub_bounds, scene.super_bounds, scene.root_bounds))
 
 
 def env_bytes(scene) -> int:
@@ -274,6 +275,7 @@ def main(argv=None) -> int:
     out.update(round=round_bound(scene, cfg, levels) if cfg.spp == 1 else None,
                levels=levels, tris=meta.num_real_tris,
                clusters=scene.num_clusters, supers=scene.num_supers,
+               roots=scene.num_roots,
                shape=[cfg.width, cfg.height, cfg.max_refract_depth, cfg.spp],
                card=card_line(device))
     print(json.dumps(out), flush=True)

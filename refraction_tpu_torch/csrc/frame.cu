@@ -33,14 +33,17 @@
 // their subs and triangles, before the near hit could prune them.
 //
 // The design (PERF.md, PR 4, measured step by step): the traversal is
-// traverse_f2b.cuh's, in two instances chosen at launch from the scene.
+// traverse_f2b.cuh's, in three instances chosen at launch from the scene.
 // Scenes with super boxes (more than 32 clusters) walk supers, their
 // clusters and their subs near to far, so the nearest hit prunes what
-// lies behind it; smaller scenes walk their boxes in table order, where
-// ordering cost more than it saved (the demo's 10 clusters of 16 subs).
-// At scene.auto_cluster_size only meshes of up to 4,096 triangles (the
-// demo's bands) build 32 clusters or fewer and walk flat; every larger
-// mesh walks supers. Measured and not kept: tables staged in shared
+// lies behind it; scenes of 33-1,024 supers (1,025-32,768 clusters) walk
+// root boxes over runs of 32 supers above them, near to far too; smaller
+// scenes walk their boxes in table order, where ordering cost more than
+// it saved (the demo's 10 clusters of 16 subs). At
+// scene.auto_cluster_size only meshes of up to 4,096 triangles (the
+// demo's bands) build 32 clusters or fewer and walk flat, and meshes of
+// 524,289-16,777,216 triangles walk roots; every other mesh walks
+// supers. Measured and not kept: tables staged in shared
 // memory (the demo tables fit in L1 already; 50-96 KB of shared memory per
 // block cut the resident warps), a persistent grid pulling 16x2 or 16x8
 // tiles from an atomic counter, and launch bounds that lift the register
@@ -155,7 +158,7 @@ __device__ __forceinline__ float3 rt_pixel(const RtScene& scene,
   return make_float3(acc_r * inv_spp, acc_g * inv_spp, acc_b * inv_spp);
 }
 
-// The arguments every frame kernel takes, in the C entries' order.
+// The arguments every frame kernel takes first, in the C entries' order.
 #define RT_FRAME_PARAMS                                                       \
   const float *__restrict__ sc, const float *__restrict__ tri,               \
       const float *__restrict__ norm, const float *__restrict__ supers,      \
@@ -168,10 +171,14 @@ __device__ __forceinline__ float3 rt_pixel(const RtScene& scene,
   sc, tri, norm, supers, clusters, subs, env, out, width, height, spp,       \
       inv_spp, max_refract, max_reflect, n_supers, n_clusters, cluster_size, \
       sub_tris, env_h, env_w
+// The root boxes come last, after a kernel's other arguments, so that the
+// flat and supers instances, which never read them, keep the parameter
+// offsets, and so the instructions, they had before there were roots.
+#define RT_ROOT_PARAMS const float *__restrict__ roots, int n_roots
 #define RT_SCENE                                                              \
   RtScene {                                                                   \
     supers, clusters, subs, tri, norm, n_supers, n_clusters,                 \
-        cluster_size / sub_tris, sub_tris                                     \
+        cluster_size / sub_tris, sub_tris, roots, n_roots                     \
   }
 
 // ---- rt_frame, rt_frame_tiles ----------------------------------------
@@ -179,7 +186,8 @@ __device__ __forceinline__ float3 rt_pixel(const RtScene& scene,
 // One thread per pixel; block (16, 8), a warp on a compact 16x2 patch; the
 // stack in local memory (L1-resident).
 template <int WALK>
-__global__ void __launch_bounds__(128) rt_frame_kernel(RT_FRAME_PARAMS) {
+__global__ void __launch_bounds__(128) rt_frame_kernel(RT_FRAME_PARAMS,
+                                                       RT_ROOT_PARAMS) {
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
@@ -192,16 +200,19 @@ __global__ void __launch_bounds__(128) rt_frame_kernel(RT_FRAME_PARAMS) {
   o[2] = c.z;
 }
 
-extern "C" int rt_frame(RT_FRAME_PARAMS, void* stream) {
+extern "C" int rt_frame(RT_FRAME_PARAMS, RT_ROOT_PARAMS, void* stream) {
   const dim3 block(16, 8);
   const dim3 grid((width + block.x - 1) / block.x,
                   (height + block.y - 1) / block.y);
-  if (n_supers > 0) {
-    rt_frame_kernel<RT_WALK_SUPERS>
-        <<<grid, block, 0, (cudaStream_t)stream>>>(RT_FRAME_ARGS);
+  if (n_roots > 0) {
+    rt_frame_kernel<RT_WALK_ROOTS><<<grid, block, 0, (cudaStream_t)stream>>>(
+        RT_FRAME_ARGS, roots, n_roots);
+  } else if (n_supers > 0) {
+    rt_frame_kernel<RT_WALK_SUPERS><<<grid, block, 0, (cudaStream_t)stream>>>(
+        RT_FRAME_ARGS, roots, n_roots);
   } else {
-    rt_frame_kernel<RT_WALK_FLAT>
-        <<<grid, block, 0, (cudaStream_t)stream>>>(RT_FRAME_ARGS);
+    rt_frame_kernel<RT_WALK_FLAT><<<grid, block, 0, (cudaStream_t)stream>>>(
+        RT_FRAME_ARGS, roots, n_roots);
   }
   return (int)cudaGetLastError();
 }
@@ -210,7 +221,8 @@ extern "C" int rt_frame(RT_FRAME_PARAMS, void* stream) {
 // local tile j = global tile j * tile_stride + tile_base.
 template <int WALK>
 __global__ void __launch_bounds__(128) rt_frame_tiles_kernel(
-    RT_FRAME_PARAMS, int tile_stride, int tile_base, int n_tiles_real) {
+    RT_FRAME_PARAMS, int tile_stride, int tile_base, int n_tiles_real,
+    RT_ROOT_PARAMS) {
   const int lx = blockIdx.x * blockDim.x + threadIdx.x;  // 0..31 in the tile
   const int ly = blockIdx.y * blockDim.y + threadIdx.y;
   const int j = blockIdx.z;
@@ -232,19 +244,21 @@ __global__ void __launch_bounds__(128) rt_frame_tiles_kernel(
 
 extern "C" int rt_frame_tiles(RT_FRAME_PARAMS, int tile_stride,
                               int tile_base, int n_local, int n_tiles_real,
-                              void* stream) {
+                              RT_ROOT_PARAMS, void* stream) {
   if (n_local < 1) return (int)cudaSuccess;
   const dim3 block(16, 8);
   const dim3 grid(RT_TILE / block.x, RT_TILE / block.y, n_local);
-  if (n_supers > 0) {
-    rt_frame_tiles_kernel<RT_WALK_SUPERS>
-        <<<grid, block, 0, (cudaStream_t)stream>>>(
-            RT_FRAME_ARGS, tile_stride, tile_base, n_tiles_real);
+#define RT_TILES_LAUNCH(WALK)                                                 \
+  rt_frame_tiles_kernel<WALK><<<grid, block, 0, (cudaStream_t)stream>>>(      \
+      RT_FRAME_ARGS, tile_stride, tile_base, n_tiles_real, roots, n_roots)
+  if (n_roots > 0) {
+    RT_TILES_LAUNCH(RT_WALK_ROOTS);
+  } else if (n_supers > 0) {
+    RT_TILES_LAUNCH(RT_WALK_SUPERS);
   } else {
-    rt_frame_tiles_kernel<RT_WALK_FLAT>
-        <<<grid, block, 0, (cudaStream_t)stream>>>(
-            RT_FRAME_ARGS, tile_stride, tile_base, n_tiles_real);
+    RT_TILES_LAUNCH(RT_WALK_FLAT);
   }
+#undef RT_TILES_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -253,9 +267,11 @@ extern "C" int rt_frame_tiles(RT_FRAME_PARAMS, int tile_stride,
 // out[0..3] = resident blocks per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers a thread,
 // local memory bytes a thread, threads a block; of rt_frame_kernel in walk
-// RT_WALK_FLAT or RT_WALK_SUPERS.
+// RT_WALK_FLAT, RT_WALK_SUPERS or RT_WALK_ROOTS.
 extern "C" int rt_frame_occupancy(int walk, int* out) {
-  const void* fn = walk == RT_WALK_SUPERS
+  const void* fn = walk == RT_WALK_ROOTS
+                       ? (const void*)rt_frame_kernel<RT_WALK_ROOTS>
+                   : walk == RT_WALK_SUPERS
                        ? (const void*)rt_frame_kernel<RT_WALK_SUPERS>
                        : (const void*)rt_frame_kernel<RT_WALK_FLAT>;
   const int threads = 128;

@@ -52,8 +52,8 @@
 // no live lane is a launch whose warps exit at once. Children are
 // appended with one atomicAdd per warp (ballots give each lane its
 // offset), so a warp's children land contiguously and the writes stay
-// coalesced. The traversal is traverse_f2b.cuh's, in its flat or supers
-// instance as the scene has super boxes or not.
+// coalesced. The traversal is traverse_f2b.cuh's, in its flat, supers or
+// roots instance as the scene has super boxes, root boxes, or neither.
 //
 // A pixel's misses are summed in slot order, whatever the queue order. The
 // static layout adds a round to the running radiance as
@@ -275,31 +275,34 @@ __global__ void __launch_bounds__(256) rt_fold_round_kernel(
 
 static RtRoundArgs rt_round_args(float tmin, float tmax, float ior, float r0,
                                  const float* tri, const float* norm,
-                                 const float* supers, const float* clusters,
-                                 const float* subs, const float* env,
-                                 int n_supers, int n_clusters,
-                                 int cluster_size, int sub_tris, int env_h,
-                                 int env_w) {
+                                 const float* roots, const float* supers,
+                                 const float* clusters, const float* subs,
+                                 const float* env, int n_roots, int n_supers,
+                                 int n_clusters, int cluster_size,
+                                 int sub_tris, int env_h, int env_w) {
   return RtRoundArgs{
       RtScene{supers, clusters, subs, tri, norm, n_supers, n_clusters,
-              cluster_size / sub_tris, sub_tris},
+              cluster_size / sub_tris, sub_tris, roots, n_roots},
       env, env_h, env_w, tmin, tmax, ior, r0};
 }
+
+// Instantiates LAUNCH(V, WALK) for the scene's walk.
+#define RT_ROUND_WALK(LAUNCH, V)                                             \
+  if (n_roots > 0) LAUNCH(V, RT_WALK_ROOTS);                                 \
+  else if (n_supers > 0) LAUNCH(V, RT_WALK_SUPERS);                          \
+  else LAUNCH(V, RT_WALK_FLAT)
 
 // Instantiates LAUNCH(V, WALK) for the variant and the scene's walk.
 #define RT_ROUND_DISPATCH(LAUNCH)                                            \
   switch (variant) {                                                         \
     case RT_ROUND_FULL:                                                      \
-      if (n_supers > 0) LAUNCH(RT_ROUND_FULL, RT_WALK_SUPERS);               \
-      else LAUNCH(RT_ROUND_FULL, RT_WALK_FLAT);                              \
+      RT_ROUND_WALK(LAUNCH, RT_ROUND_FULL);                                  \
       break;                                                                 \
     case RT_ROUND_CHILDREN:                                                  \
-      if (n_supers > 0) LAUNCH(RT_ROUND_CHILDREN, RT_WALK_SUPERS);           \
-      else LAUNCH(RT_ROUND_CHILDREN, RT_WALK_FLAT);                          \
+      RT_ROUND_WALK(LAUNCH, RT_ROUND_CHILDREN);                              \
       break;                                                                 \
     case RT_ROUND_RADIANCE:                                                  \
-      if (n_supers > 0) LAUNCH(RT_ROUND_RADIANCE, RT_WALK_SUPERS);           \
-      else LAUNCH(RT_ROUND_RADIANCE, RT_WALK_FLAT);                          \
+      RT_ROUND_WALK(LAUNCH, RT_ROUND_RADIANCE);                              \
       break;                                                                 \
     default: return (int)cudaErrorInvalidValue;                              \
   }
@@ -308,17 +311,17 @@ static RtRoundArgs rt_round_args(float tmin, float tmax, float ior, float r0,
 // only, unused (may be null) for radiance only. Returns a cudaError_t.
 extern "C" int rt_round(float tmin, float tmax, float ior, float r0,
                         const float* tri, const float* norm,
-                        const float* supers, const float* clusters,
-                        const float* subs, const float* env,
-                        const float* state, int w, float* rad, float* next,
-                        int variant, int n_supers, int n_clusters,
-                        int cluster_size, int sub_tris, int env_h, int env_w,
-                        void* stream) {
+                        const float* roots, const float* supers,
+                        const float* clusters, const float* subs,
+                        const float* env, const float* state, int w,
+                        float* rad, float* next, int variant, int n_roots,
+                        int n_supers, int n_clusters, int cluster_size,
+                        int sub_tris, int env_h, int env_w, void* stream) {
   if (w <= 0) return 0;
   const RtRoundArgs a =
-      rt_round_args(tmin, tmax, ior, r0, tri, norm, supers, clusters, subs,
-                    env, n_supers, n_clusters, cluster_size, sub_tris, env_h,
-                    env_w);
+      rt_round_args(tmin, tmax, ior, r0, tri, norm, roots, supers, clusters,
+                    subs, env, n_roots, n_supers, n_clusters, cluster_size,
+                    sub_tris, env_h, env_w);
   const int block = 128;
   const int grid = (w + block - 1) / block;
   cudaStream_t s = (cudaStream_t)stream;
@@ -347,25 +350,26 @@ extern "C" int rt_round(float tmin, float tmax, float ior, float r0,
 // cells (PERF.md). Returns a cudaError_t.
 extern "C" int rt_round_queue(float tmin, float tmax, float ior, float r0,
                               const float* tri, const float* norm,
-                              const float* supers, const float* clusters,
-                              const float* subs, const float* env,
-                              const float* state, const int* slot,
-                              const int* count, int cap, int width, int n_pix,
-                              float* rad, float* slab, int* mask,
-                              int* pixel_rays, float* next, int* next_slot,
-                              int* next_count, int next_cap,
-                              int variant, int n_supers, int n_clusters,
-                              int cluster_size, int sub_tris, int env_h,
-                              int env_w, int max_blocks, void* stream) {
+                              const float* roots, const float* supers,
+                              const float* clusters, const float* subs,
+                              const float* env, const float* state,
+                              const int* slot, const int* count, int cap,
+                              int width, int n_pix, float* rad, float* slab,
+                              int* mask, int* pixel_rays, float* next,
+                              int* next_slot, int* next_count, int next_cap,
+                              int variant, int n_roots, int n_supers,
+                              int n_clusters, int cluster_size, int sub_tris,
+                              int env_h, int env_w, int max_blocks,
+                              void* stream) {
   if (max_blocks <= 0 || n_pix <= 0) return (int)cudaErrorInvalidValue;
   // One mask bit per lane of a pixel.
   if (width > n_pix &&
       (slab == nullptr || mask == nullptr || (width - 1) / n_pix >= 32))
     return (int)cudaErrorInvalidValue;
   const RtRoundArgs a =
-      rt_round_args(tmin, tmax, ior, r0, tri, norm, supers, clusters, subs,
-                    env, n_supers, n_clusters, cluster_size, sub_tris, env_h,
-                    env_w);
+      rt_round_args(tmin, tmax, ior, r0, tri, norm, roots, supers, clusters,
+                    subs, env, n_roots, n_supers, n_clusters, cluster_size,
+                    sub_tris, env_h, env_w);
   const int block = 128;
   const int full = width > block ? (width + block - 1) / block : 1;
   const int grid = full < max_blocks ? full : max_blocks;

@@ -7,12 +7,17 @@
 // box hierarchy with bitmask-gated visits, and the near-to-far cluster
 // order that the TPU frame path gets from a per-frame table permutation
 // (framekernel.py::front_to_back_scene, 975-1035). Here one thread walks
-// one ray; the order is per ray and idx stays in table order. Two
+// one ray; the order is per ray and idx stays in table order. Three
 // instances, chosen by the caller from the scene:
 //
-//   RT_WALK_SUPERS (the scene has super boxes: more than 32 clusters):
-//     supers, near to far (in groups of 32); stop at the first whose
-//     entry is past best_t
+//   RT_WALK_ROOTS (the scene has root boxes, 2-32 of them: 33-1,024
+//   supers): roots, near to far; stop at the first whose entry is past
+//   best_t
+//       their 32 supers, near to far, the same
+//         then as RT_WALK_SUPERS below a super
+//   RT_WALK_SUPERS (super boxes and no roots: 33-1,024 clusters, or more
+//   than 32,768): supers, near to far (in groups of 32); stop at the
+//   first whose entry is past best_t
 //       their 32 clusters, near to far, the same
 //         their subs, near to far (in groups of 64), the same
 //           Möller–Trumbore on each of the sub's triangles
@@ -29,6 +34,9 @@
 // the 81,920-triangle scene it cut the frame kernel by 39%, while on a
 // 10-cluster scene the picking and the registers it holds cost more than
 // the boxes it skipped (PERF.md, PR 4), hence the flat instance.
+// A root is a node of the build's split (scene.build_scene), so one root
+// box stands for 32 supers that a miss would otherwise test one by one,
+// and the near root is entered before the far one.
 //
 // Winners do not depend on the order: a triangle wins on the pair compare
 // t < best_t || (t == best_t && k < best_i), so equal t go to the lowest
@@ -63,9 +71,11 @@ struct RtScene {
   const float* tri;       // (T, 9) [A | e1 | e2]
   const float* norm;      // (T, 9) [nA | nB-nA | nC-nA]
   int n_supers, n_clusters, subs_per_cluster, sub_tris;
+  const float* roots;     // (n_roots, 6); root q = supers [32q, 32q+32)
+  int n_roots;
 };
 
-enum RtWalk { RT_WALK_FLAT = 0, RT_WALK_SUPERS = 1 };
+enum RtWalk { RT_WALK_FLAT = 0, RT_WALK_SUPERS = 1, RT_WALK_ROOTS = 2 };
 
 #define RT_SUPER_CLUSTERS 32
 
@@ -142,7 +152,8 @@ __device__ __forceinline__ bool rt_in_order(const float* boxes, int first,
 // -1 back faces (det < 0), 0 is a dead ray (a miss). With any_hit the
 // walk stops at the first accepted triangle and idx/normal are not
 // resolved (idx = 0 on a hit): the depth-cap round only needs hit or
-// miss. WALK must be RT_WALK_SUPERS exactly when sc.n_supers > 0.
+// miss. WALK must be RT_WALK_ROOTS when sc.n_roots > 0 (at most 32),
+// else RT_WALK_SUPERS when sc.n_supers > 0, else RT_WALK_FLAT.
 template <int WALK>
 __device__ __forceinline__ RtHit rt_closest_hit(
     const RtScene& sc, float ox, float oy, float oz, float dx, float dy,
@@ -194,7 +205,7 @@ __device__ __forceinline__ RtHit rt_closest_hit(
     return false;
   };
   auto visit_cluster = [&](int c) -> bool {
-    if (WALK == RT_WALK_SUPERS) {
+    if (WALK != RT_WALK_FLAT) {
       for (int g = 0; g < sc.subs_per_cluster; g += 64)
         if (rt_near_to_far<unsigned long long>(
                 sc.subs, c * sc.subs_per_cluster + g,
@@ -211,8 +222,18 @@ __device__ __forceinline__ RtHit rt_closest_hit(
                           min(RT_SUPER_CLUSTERS, sc.n_clusters - first), r,
                           best_t, visit_cluster);
   };
-  if (WALK == RT_WALK_SUPERS) {
-    // Supers in groups of 32 (more than 1,024 clusters: groups in order).
+  auto visit_root = [&](int q) -> bool {
+    const int first = q * RT_SUPER_CLUSTERS;
+    return rt_near_to_far(sc.supers, first,
+                          min(RT_SUPER_CLUSTERS, sc.n_supers - first), r,
+                          best_t, visit_super);
+  };
+  if (WALK == RT_WALK_ROOTS) {
+    // At most 32 roots (scene.level_sizes), so one near-to-far pick.
+    rt_near_to_far(sc.roots, 0, sc.n_roots, r, best_t, visit_root);
+  } else if (WALK == RT_WALK_SUPERS) {
+    // Supers in groups of 32 (more than 32,768 clusters, which keep no
+    // roots: groups in order).
     for (int g = 0; g < sc.n_supers; g += RT_SUPER_CLUSTERS)
       if (rt_near_to_far(sc.supers, g, min(RT_SUPER_CLUSTERS, sc.n_supers - g),
                          r, best_t, visit_super))

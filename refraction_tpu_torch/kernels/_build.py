@@ -43,38 +43,39 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes. Every entry returns a cudaError_t.
 SIGNATURES = {
-    # tri, norm, supers, clusters, subs, origins, dirs, cull, n, tmin,
-    # tmax, n_supers, n_clusters, cluster_size, sub_tris, t_out, idx_out,
-    # n_out, stream
-    "rt_closest_hit": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F,
-                       _I, _I, _I, _I, _P, _P, _P, _P],
+    # tri, norm, roots, supers, clusters, subs, origins, dirs, cull, n,
+    # tmin, tmax, n_roots, n_supers, n_clusters, cluster_size, sub_tris,
+    # t_out, idx_out, n_out, stream
+    "rt_closest_hit": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F,
+                       _I, _I, _I, _I, _I, _P, _P, _P, _P],
     # env, env_h, env_w, dirs, weight, n, out, stream
     "rt_env": [_P, _I, _I, _P, _P, _I, _P, _P],
     # variant, env, env4, env_h, env_w, dirs, weight, n, out, stream
     "rt_env_variant": [_I, _P, _P, _I, _I, _P, _P, _I, _P, _P],
     # scalars, tri, norm, supers, clusters, subs, env, out, width, height,
     # spp, inv_spp, max_refract, max_reflect, n_supers, n_clusters,
-    # cluster_size, sub_tris, env_h, env_w, stream
+    # cluster_size, sub_tris, env_h, env_w, roots, n_roots, stream
     "rt_frame": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
-                 _I, _I, _I, _I, _I, _I, _P],
-    # walk (0 flat, 1 supers), int[4] out (no stream)
+                 _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # walk (0 flat, 1 supers, 2 roots), int[4] out (no stream)
     "rt_frame_occupancy": [_I, _P],
     # the rt_frame arguments up to env_w, then tile_stride, tile_base,
-    # n_local, n_tiles_real, stream
+    # n_local, n_tiles_real, roots, n_roots, stream
     "rt_frame_tiles": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # tmin, tmax, ior, r0, tri, norm, supers, clusters, subs, env, state,
-    # w, rad, next, variant, n_supers, n_clusters, cluster_size, sub_tris,
-    # env_h, env_w, stream
-    "rt_round": [_F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
-                 _I, _I, _I, _I, _I, _I, _I, _P],
-    # tmin, tmax, ior, r0, tri, norm, supers, clusters, subs, env, state,
-    # slot, count, cap, width, n_pix, rad, slab, mask, pixel_rays, next,
-    # next_slot, next_count, next_cap, variant, n_supers, n_clusters,
-    # cluster_size, sub_tris, env_h, env_w, max_blocks, stream
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                       _P],
+    # tmin, tmax, ior, r0, tri, norm, roots, supers, clusters, subs, env,
+    # state, w, rad, next, variant, n_roots, n_supers, n_clusters,
+    # cluster_size, sub_tris, env_h, env_w, stream
+    "rt_round": [_F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                 _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # tmin, tmax, ior, r0, tri, norm, roots, supers, clusters, subs, env,
+    # state, slot, count, cap, width, n_pix, rad, slab, mask, pixel_rays,
+    # next, next_slot, next_count, next_cap, variant, n_roots, n_supers,
+    # n_clusters, cluster_size, sub_tris, env_h, env_w, max_blocks, stream
     "rt_round_queue": [_F, _F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _I, _I, _I, _I, _I, _I, _P],
+                       _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # slab, mask, n_pix, rad, stream
     "rt_fold_round": [_P, _P, _I, _P, _P],
     # tri, o, d, cull, r, v, t_out, i_out, stream

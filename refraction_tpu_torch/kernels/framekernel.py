@@ -16,11 +16,11 @@ the image are zero. Its plain version is ``frame_tiles_plain``.
 
 The TPU path's front-to-back cluster permutation (``front_to_back_scene``)
 becomes a per-ray near-to-far walk inside the kernel over the scene's
-super and cluster boxes, so winner indices need no remapping. The kernel
-has two instances, chosen at launch from the scene: `walk_of` names the
-one a scene takes, `walk_levels` its box levels, and each full-frame
-wrapper counts its launches per instance beside ``launches``
-(``fused_radiance.walks["supers"]``). A launch that fails raises.
+root, super and cluster boxes, so winner indices need no remapping. The
+kernel has three instances, chosen at launch from the scene: `walk_of`
+names the one a scene takes, `walk_levels` its box levels, and each
+full-frame wrapper counts its launches per instance beside ``launches``
+(``fused_radiance.walks["roots"]``). A launch that fails raises.
 
 Both entries run one thread per pixel over csrc/traverse_f2b.cuh's walk.
 `frame_occupancy` reads the full-frame kernel's resident blocks and
@@ -45,7 +45,6 @@ from refraction_tpu_torch.kernels.envmap import (
 )
 from refraction_tpu_torch.kernels.intersect import check_scene_tables
 from refraction_tpu_torch.ops.backends import torch_intersect
-from refraction_tpu_torch.scene import SUPER_CLUSTERS
 from refraction_tpu_torch.tracing import span
 
 # Scalar vector layout (as refraction_tpu/kernels/framekernel.py:96-103):
@@ -57,6 +56,8 @@ N_BASE_SCALARS = 18
 MAX_STACK = 8
 # Tile edge of the pixel-DP entry; must equal RT_TILE in frame.cu.
 TILE = 32
+# traverse_f2b.cuh RtWalk: the instances' names, by their enum value.
+WALKS = ("flat", "supers", "roots")
 
 
 def build_scalars(frame: CameraFrame, cfg: RenderConfig, offsets: np.ndarray,
@@ -116,18 +117,21 @@ def _check_frame_args(scene, scalars, cfg):
 
 def walk_of(scene) -> str:
     """The traversal instance the CUDA kernels take for ``scene``:
-    ``"supers"`` (super boxes, walked near to far) or ``"flat"`` (at most
-    32 clusters, in table order); traverse_f2b.cuh RtWalk."""
+    ``"roots"`` (root boxes over runs of 32 supers, walked near to far
+    above them: 33-1,024 supers), ``"supers"`` (super boxes and no roots,
+    near to far) or ``"flat"`` (at most 32 clusters, in table order);
+    traverse_f2b.cuh RtWalk."""
+    if scene.num_roots > 0:
+        return "roots"
     return "supers" if scene.num_supers > 0 else "flat"
 
 
 def walk_levels(scene) -> dict:
     """The levels ``scene``'s walk goes through: its instance (`walk_of`),
-    super boxes, the groups of up to 32 supers its top level walks one
-    after another (0 on the flat walk), clusters and subs a cluster."""
-    return {"walk": walk_of(scene), "supers": scene.num_supers,
-            "groups": -(-scene.num_supers // SUPER_CLUSTERS),
-            "clusters": scene.num_clusters,
+    root boxes and super boxes (0 where the walk has no such level),
+    clusters and subs a cluster."""
+    return {"walk": walk_of(scene), "roots": scene.num_roots,
+            "supers": scene.num_supers, "clusters": scene.num_clusters,
             "subs_per_cluster": scene.cluster_size // scene.sub_tris}
 
 
@@ -149,24 +153,24 @@ def fused_radiance(scene, scalars: torch.Tensor,
         out = torch.empty(cfg.height, cfg.width, 3, dtype=torch.float32,
                           device=scalars.device)
         launch("rt_frame", scalars.device,
-               *_frame_args(scene, scalars, cfg, out))
+               *_frame_args(scene, scalars, cfg, out), *_root_args(scene))
     fused_radiance.launches += 1
     fused_radiance.walks[walk_of(scene)] += 1
     return out
 
 
 fused_radiance.launches = 0
-fused_radiance.walks = {"flat": 0, "supers": 0}
+fused_radiance.walks = dict.fromkeys(WALKS, 0)
 
 
 def frame_occupancy(walk: str, device: torch.device) -> dict:
     """Resident blocks and warps per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
     local memory a thread of the full-frame kernel in the ``walk``
-    instance ("flat" or "supers") on ``device`` (CUDA)."""
+    instance (one of `WALKS`) on ``device`` (CUDA)."""
     out = (ctypes.c_int * 4)()
     with on_device(device):
-        err = library().rt_frame_occupancy(1 if walk == "supers" else 0, out)
+        err = library().rt_frame_occupancy(WALKS.index(walk), out)
     check(err, "rt_frame_occupancy")
     blocks, regs, local, threads = out
     return {"blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
@@ -175,7 +179,7 @@ def frame_occupancy(walk: str, device: torch.device) -> dict:
 
 
 def _frame_args(scene, scalars, cfg, out) -> tuple:
-    """rt_frame's arguments, and rt_frame_tiles' first ones."""
+    """rt_frame's and rt_frame_tiles' first arguments."""
     return (scalars.data_ptr(), scene.tri_packed.data_ptr(),
             scene.tri_norm_packed.data_ptr(), scene.super_bounds.data_ptr(),
             scene.cluster_bounds.data_ptr(), scene.sub_bounds.data_ptr(),
@@ -184,6 +188,11 @@ def _frame_args(scene, scalars, cfg, out) -> tuple:
             cfg.max_reflect_depth, scene.num_supers, scene.num_clusters,
             scene.cluster_size, scene.sub_tris, scene.envmap.shape[0],
             scene.envmap.shape[1])
+
+
+def _root_args(scene) -> tuple:
+    """rt_frame's and rt_frame_tiles' last arguments before the stream."""
+    return scene.root_bounds.data_ptr(), scene.num_roots
 
 
 def tile_grid(cfg: RenderConfig) -> tuple[int, int]:
@@ -266,7 +275,7 @@ def frame_tiles(scene, scalars: torch.Tensor, cfg: RenderConfig,
                           device=scalars.device)
         launch("rt_frame_tiles", scalars.device,
                *_frame_args(scene, scalars, cfg, out), tile_stride,
-               tile_base, n_local, n_tiles_real)
+               tile_base, n_local, n_tiles_real, *_root_args(scene))
     frame_tiles.launches += 1
     return out
 

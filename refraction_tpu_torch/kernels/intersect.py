@@ -19,7 +19,7 @@ from refraction_tpu_torch.ops.intersect import (
     recompute_uv,
 )
 from refraction_tpu_torch.ops.shade import f32
-from refraction_tpu_torch.scene import SUPER_CLUSTERS
+from refraction_tpu_torch.scene import level_sizes
 
 
 def cull_code(want_front: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
@@ -33,12 +33,13 @@ def cull_code(want_front: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
 
 def check_scene_tables(scene, device: torch.device) -> None:
     """The traversal's tables: float32, contiguous, on ``device``, and
-    shaped as super, cluster and sub boxes of whole triangle blocks."""
+    shaped as root, super, cluster and sub boxes of whole triangle
+    blocks."""
     t = scene.num_tris
+    n_roots, n_supers = level_sizes(scene.num_clusters)
     shapes = {"tri_packed": (t, 9), "tri_norm_packed": (t, 9),
-              "super_bounds": (-(-scene.num_clusters // SUPER_CLUSTERS)
-                               if scene.num_clusters > SUPER_CLUSTERS else 0,
-                               6),
+              "root_bounds": (n_roots, 6),
+              "super_bounds": (n_supers, 6),
               "cluster_bounds": (scene.num_clusters, 6),
               "sub_bounds": (t // scene.sub_tris, 6)}
     for name, shape in shapes.items():
@@ -101,9 +102,10 @@ def closest_hit(scene, origins, dirs, cull, tmin: float, tmax: float):
         return t, idx, normal
     launch("rt_closest_hit", origins.device,
            scene.tri_packed.data_ptr(), scene.tri_norm_packed.data_ptr(),
-           scene.super_bounds.data_ptr(), scene.cluster_bounds.data_ptr(),
-           scene.sub_bounds.data_ptr(), origins.data_ptr(), dirs.data_ptr(),
-           cull.data_ptr(), n, f32(tmin), f32(tmax), scene.num_supers,
+           scene.root_bounds.data_ptr(), scene.super_bounds.data_ptr(),
+           scene.cluster_bounds.data_ptr(), scene.sub_bounds.data_ptr(),
+           origins.data_ptr(), dirs.data_ptr(), cull.data_ptr(), n,
+           f32(tmin), f32(tmax), scene.num_roots, scene.num_supers,
            scene.num_clusters, scene.cluster_size, scene.sub_tris,
            t.data_ptr(), idx.data_ptr(), normal.data_ptr())
     closest_hit.launches += 1

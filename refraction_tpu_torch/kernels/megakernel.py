@@ -192,12 +192,12 @@ def mega_round(scene, state: torch.Tensor, limits: Sequence[float],
         return RoundOut(rad, children)
     env = scene.envmap
     launch("rt_round", dev, tmin, tmax, ior, r0, scene.tri_packed.data_ptr(),
-           scene.tri_norm_packed.data_ptr(), scene.super_bounds.data_ptr(),
-           scene.cluster_bounds.data_ptr(), scene.sub_bounds.data_ptr(),
-           env.data_ptr(), state.data_ptr(), w, rad.data_ptr(),
-           None if children is None else children.data_ptr(), variant,
-           scene.num_supers, scene.num_clusters, scene.cluster_size,
-           scene.sub_tris, env.shape[0], env.shape[1])
+           scene.tri_norm_packed.data_ptr(), scene.root_bounds.data_ptr(),
+           scene.super_bounds.data_ptr(), scene.cluster_bounds.data_ptr(),
+           scene.sub_bounds.data_ptr(), env.data_ptr(), state.data_ptr(), w,
+           rad.data_ptr(), None if children is None else children.data_ptr(),
+           variant, scene.num_roots, scene.num_supers, scene.num_clusters,
+           scene.cluster_size, scene.sub_tris, env.shape[0], env.shape[1])
     mega_round.launches += 1
     return RoundOut(rad, children)
 
@@ -364,12 +364,12 @@ class QueueRound:
         self._launch = library().rt_round_queue
         self._launch_fold = library().rt_fold_round
         self._tables = tuple(x.data_ptr() for x in (
-            scene.tri_packed, scene.tri_norm_packed, scene.super_bounds,
-            scene.cluster_bounds, scene.sub_bounds, env))
+            scene.tri_packed, scene.tri_norm_packed, scene.root_bounds,
+            scene.super_bounds, scene.cluster_bounds, scene.sub_bounds, env))
         sms = torch.cuda.get_device_properties(
             self.device).multi_processor_count
         self._stream = torch.cuda.current_stream(self.device).cuda_stream
-        self._sizes = (scene.num_supers, scene.num_clusters,
+        self._sizes = (scene.num_roots, scene.num_supers, scene.num_clusters,
                        scene.cluster_size, scene.sub_tris, env.shape[0],
                        env.shape[1], BLOCKS_PER_SM * sms, self._stream)
         self._slab = self._mask = None

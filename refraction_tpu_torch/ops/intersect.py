@@ -150,14 +150,27 @@ def _overlapping(boxes, rays, cand_ray, cand_box):
     return cand_ray[hit], cand_box[hit]
 
 
+def _children(r, parent, n_child):
+    """(ray, box) pairs -> (ray, child box) pairs, the children of box p
+    being [32 p, 32 p + 32) of the ``n_child`` boxes one level down."""
+    first = parent * SUPER_CLUSTERS
+    size = torch.clamp(n_child - first, max=SUPER_CLUSTERS)
+    start = torch.cumsum(size, 0) - size
+    pos = torch.arange(int(size.sum()), device=r.device)
+    return (r.repeat_interleave(size),
+            first.repeat_interleave(size) + pos - start.repeat_interleave(size))
+
+
 def traversal_work(scene, o: torch.Tensor, d: torch.Tensor, tmin,
                    t_hit: torch.Tensor, cull: torch.Tensor) -> dict:
     """The box and triangle tests N rays need under the scene's hierarchy,
     whatever the visit order: per ray (N,) int64 counts
 
-    - ``super_tests``: every super box (scenes with supers), else 0;
-    - ``cluster_tests``: the clusters of the supers the ray overlaps on
-      ``[tmin, t_hit]``, or every cluster when there are no supers;
+    - ``root_tests``: every root box (scenes with roots), else 0;
+    - ``super_tests``: the supers of the roots the ray overlaps on
+      ``[tmin, t_hit]``, or every super box when there are no roots;
+    - ``cluster_tests``: the clusters of the supers it overlaps there, or
+      every cluster when there are no supers;
     - ``sub_tests``: the sub boxes of the clusters it overlaps there;
     - ``mt_tests``: the triangles of the subs it overlaps there.
 
@@ -168,31 +181,31 @@ def traversal_work(scene, o: torch.Tensor, d: torch.Tensor, tmin,
     frame (render.frame_traversal_work)."""
     n, dev = o.shape[0], o.device
     out = {k: torch.zeros(n, dtype=torch.int64, device=dev)
-           for k in ("super_tests", "cluster_tests", "sub_tests", "mt_tests")}
+           for k in ("root_tests", "super_tests", "cluster_tests", "sub_tests",
+                     "mt_tests")}
     tmin = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(n)
     t_hit = t_hit.to(torch.float32)
     inv_all = _safe_inv(d)
-    n_sup, n_cl = scene.num_supers, scene.num_clusters
+    # The box levels from the top, each with its table and its test count.
+    levels = [(scene.root_bounds, "root_tests"),
+              (scene.super_bounds, "super_tests"),
+              (scene.cluster_bounds, "cluster_tests")]
+    levels = [lv for lv in levels if lv[0].shape[0]]
     spc = scene.cluster_size // scene.sub_tris
-    cl_of_super = torch.arange(n_cl, device=dev) // SUPER_CLUSTERS
-    super_size = torch.bincount(cl_of_super, minlength=max(n_sup, 1))
     for s in range(0, n, _WORK_CHUNK):
         live = torch.nonzero(cull[s:s + _WORK_CHUNK] != 0).squeeze(1) + s
         if live.numel() == 0:
             continue
         rays = (o[live], inv_all[live], tmin[live], t_hit[live])
         local = torch.arange(live.numel(), device=dev)
-        if n_sup:
-            out["super_tests"][live] = n_sup
-            r, b = torch.cartesian_prod(local, torch.arange(n_sup, device=dev)).T
-            r, b = _overlapping(scene.super_bounds, rays, r, b)
-            out["cluster_tests"].index_add_(0, live[r], super_size[b])
-            cand = torch.nonzero(b[:, None] == cl_of_super[None, :])
-            r, c = r[cand[:, 0]], cand[:, 1]
-        else:
-            out["cluster_tests"][live] = n_cl
-            r, c = torch.cartesian_prod(local, torch.arange(n_cl, device=dev)).T
-        r, c = _overlapping(scene.cluster_bounds, rays, r, c)
+        # Every box of the top level, then the children of those crossed.
+        r, c = torch.cartesian_prod(
+            local, torch.arange(levels[0][0].shape[0], device=dev)).T
+        for k, (boxes, key) in enumerate(levels):
+            if k:
+                r, c = _children(r, c, boxes.shape[0])
+            out[key].index_add_(0, live[r], torch.ones_like(r))
+            r, c = _overlapping(boxes, rays, r, c)
         out["sub_tests"].index_add_(0, live[r], torch.full_like(r, spc))
         r = r.repeat_interleave(spc)
         sub = (c[:, None] * spc + torch.arange(spc, device=dev)).reshape(-1)

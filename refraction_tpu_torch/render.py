@@ -156,9 +156,10 @@ def frame_traversal_work(scene: TorchScene, cfg: RenderConfig,
                          frame: CameraFrame, device: torch.device | str,
                          ) -> list[dict]:
     """The traversal work of one frame, per bounce level: a list of dicts
-    of summed `ops.intersect.traversal_work` counts (``super_tests``,
-    ``cluster_tests``, ``sub_tests``, ``mt_tests``), ``rays`` (live rays)
-    and ``misses`` (live rays that hit nothing), over every sample's rays.
+    of summed `ops.intersect.traversal_work` counts (``root_tests``,
+    ``super_tests``, ``cluster_tests``, ``sub_tests``, ``mt_tests``),
+    ``rays`` (live rays) and ``misses`` (live rays that hit nothing), over
+    every sample's rays.
 
     The rays, their intervals and their closest hits come from the eager
     integrator (`integrator.render_pixels`) over the closest-hit kernel on

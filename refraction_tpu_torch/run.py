@@ -332,10 +332,10 @@ def main(argv=None) -> int:
         scene_np, meta = load_scene(cfg)
     scene = scene_from_jax(scene_np, device)
     lv = walk_levels(scene)
-    log.info("tris=%d (padded %d), envmap=%s, walk=%s: %d supers in %d "
-             "groups, %d clusters, %d subs a cluster", meta.num_real_tris,
+    log.info("tris=%d (padded %d), envmap=%s, walk=%s: %d roots, %d "
+             "supers, %d clusters, %d subs a cluster", meta.num_real_tris,
              meta.num_padded_tris, scene_np.envmap.shape, lv["walk"],
-             lv["supers"], lv["groups"], lv["clusters"],
+             lv["roots"], lv["supers"], lv["clusters"],
              lv["subs_per_cluster"])
 
     if args.heatmap:

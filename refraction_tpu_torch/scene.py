@@ -16,7 +16,8 @@ The reference's GPU resource zoo — vertex / index upload buffers
   degenerate triangles to a multiple of the cluster size;
 - per-cluster and per-sub (``SUB_TRIS`` triangles) boxes are the
   acceleration structure; scenes of more than ``SUPER_CLUSTERS`` clusters
-  get a third, coarser level of super boxes (`super_bounds`);
+  get a third, coarser level of super boxes, and scenes of 33-1,024
+  supers a fourth, of root boxes over runs of 32 supers (`box_levels`);
 - Möller–Trumbore inputs (A, e1, e2) are precomputed once.
 
 The host ``Scene`` holds exactly the leaves the port uploads (``UPLOADED``).
@@ -26,7 +27,9 @@ built, and its build knobs (``RRT_CURVE``, ``RRT_ORDER_FROM``,
 ``RRT_SUBTRIS``, ``RRT_SUPER_SIZE``) are fixed at their defaults: median
 order, table order, 8 triangles per sub, 32 clusters per super. With those
 defaults both packages build the same leaves bit for bit
-(tests/test_torch_hostcode.py).
+(tests/test_torch_hostcode.py) for every scene of at most
+``SUPER_CLUSTERS ** 2`` clusters; past that the port's split gets a root
+stage, which the JAX package does not have.
 
 `scene_from_jax` is the one uploader: it takes the port's host scene or a
 JAX-built one (numpy or JAX leaves) and copies the leaves bit for bit.
@@ -110,9 +113,13 @@ def build_scene(mesh: MeshData, envmap: np.ndarray, cluster_size: int = 32,
     t_real = mesh.num_tris
     # Cascaded median split over (super, cluster, sub) windows, so that
     # supers, clusters and subs are each kd-style nodes of their own split
-    # (the JAX package's default RRT_CURVE=median).
-    order = median_split_order(
-        mesh.positions, (SUPER_CLUSTERS * cluster_size, cluster_size, SUB_TRIS))
+    # (the JAX package's default RRT_CURVE=median). Past SUPER_CLUSTERS**2
+    # clusters a root stage comes first, so that each aligned run of 32
+    # supers (a root box, `box_levels`) is a node of the split too.
+    levels = (SUPER_CLUSTERS * cluster_size, cluster_size, SUB_TRIS)
+    if -(-t_real // cluster_size) > SUPER_CLUSTERS ** 2:
+        levels = (SUPER_CLUSTERS * levels[0], *levels)
+    order = median_split_order(mesh.positions, levels)
     pos = mesh.positions[order]
     norm = mesh.normals[order]
     if tri_mask is None:
@@ -307,19 +314,43 @@ def load_instanced(spec_path: str, cfg: RenderConfig) -> tuple[Scene, SceneMeta]
     return scene, meta
 
 
-def super_bounds(cluster_bounds: np.ndarray) -> np.ndarray:
-    """(S, 6) [lo | hi] boxes of consecutive runs of SUPER_CLUSTERS cluster
-    boxes (the last run may be shorter); (0, 6) when the scene has at most
-    SUPER_CLUSTERS clusters, where one super would bound everything. The
-    median-split build makes each run a spatial node of its own."""
+def box_runs(n: int) -> int:
+    """Boxes over consecutive runs of SUPER_CLUSTERS of ``n`` boxes one
+    level down (the last run may be shorter): none for at most one run,
+    where one box would bound everything."""
+    return -(-n // SUPER_CLUSTERS) if n > SUPER_CLUSTERS else 0
+
+
+def level_sizes(num_clusters: int) -> tuple[int, int]:
+    """(roots, supers): the box levels over ``num_clusters`` clusters.
+    Supers bound runs of SUPER_CLUSTERS clusters, roots runs of
+    SUPER_CLUSTERS supers. Past SUPER_CLUSTERS roots (more than 32,768
+    clusters) there are none: the roots walk picks its roots in one
+    near-to-far group, and such scenes walk their supers in groups of 32."""
+    supers = box_runs(num_clusters)
+    roots = box_runs(supers)
+    return (roots if roots <= SUPER_CLUSTERS else 0), supers
+
+
+def _run_bounds(boxes: np.ndarray, n: int) -> np.ndarray:
+    """(n, 6) [lo | hi] boxes of the first ``n`` runs of SUPER_CLUSTERS
+    of ``boxes``."""
+    starts = np.arange(n) * SUPER_CLUSTERS
+    lo = np.minimum.reduceat(boxes[:, :3], starts, axis=0)
+    hi = np.maximum.reduceat(boxes[:, 3:], starts, axis=0)
+    return np.ascontiguousarray(
+        np.concatenate([lo, hi], axis=1).reshape(n, 6), np.float32)
+
+
+def box_levels(cluster_bounds: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(supers, roots): (S, 6) and (R, 6) [lo | hi] boxes over the cluster
+    boxes, in the sizes `level_sizes` gives. The median-split build makes
+    each run of clusters, and past SUPER_CLUSTERS**2 clusters each run of
+    supers, a spatial node of its own."""
     cb = np.asarray(cluster_bounds, np.float32)
-    c = cb.shape[0]
-    if c <= SUPER_CLUSTERS:
-        return np.zeros((0, 6), np.float32)
-    starts = np.arange(0, c, SUPER_CLUSTERS)
-    lo = np.minimum.reduceat(cb[:, :3], starts, axis=0)
-    hi = np.maximum.reduceat(cb[:, 3:], starts, axis=0)
-    return np.ascontiguousarray(np.concatenate([lo, hi], axis=1))
+    n_roots, n_supers = level_sizes(cb.shape[0])
+    supers = _run_bounds(cb, n_supers)
+    return supers, _run_bounds(supers, n_roots)
 
 
 class TorchScene(NamedTuple):
@@ -335,6 +366,7 @@ class TorchScene(NamedTuple):
     envmap: torch.Tensor           # (H, W, 3) equirect map
     tri_mask: torch.Tensor | None  # (T,) int32 instance mask (pad tris 0)
     super_bounds: torch.Tensor     # (S, 6) [lo | hi]; super s = clusters [s*32, (s+1)*32)
+    root_bounds: torch.Tensor      # (R, 6) [lo | hi]; root q = supers [q*32, (q+1)*32)
     sub_tris: int                  # triangles per sub box
 
     @property
@@ -350,6 +382,10 @@ class TorchScene(NamedTuple):
         return int(self.super_bounds.shape[0])
 
     @property
+    def num_roots(self) -> int:
+        return int(self.root_bounds.shape[0])
+
+    @property
     def cluster_size(self) -> int:
         return self.num_tris // self.num_clusters
 
@@ -362,8 +398,8 @@ def scene_from_jax(scene, device: torch.device | str) -> TorchScene:
     """Upload a host scene — the port's `Scene` or a
     `refraction_tpu.scene.Scene` with numpy or JAX leaves — to ``device``.
     Values are copied bit for bit; a scene built by hand without
-    ``tri_mask`` keeps None there. The super boxes are built here, on the
-    host, from ``cluster_bounds``."""
+    ``tri_mask`` keeps None there. The super and root boxes are built
+    here, on the host, from ``cluster_bounds``."""
 
     def put(name, dtype):
         leaf = getattr(scene, name)
@@ -374,7 +410,9 @@ def scene_from_jax(scene, device: torch.device | str) -> TorchScene:
 
     leaves = {name: put(name, np.int32 if name == "tri_mask" else np.float32)
               for name in UPLOADED}
-    supers = torch.from_numpy(super_bounds(np.asarray(scene.cluster_bounds)))
+    supers, roots = box_levels(scene.cluster_bounds)
     n_tris = leaves["tri_a"].shape[0]
-    return TorchScene(**leaves, super_bounds=supers.to(device),
+    return TorchScene(**leaves,
+                      super_bounds=torch.from_numpy(supers).to(device),
+                      root_bounds=torch.from_numpy(roots).to(device),
                       sub_tris=n_tris // max(leaves["sub_bounds"].shape[0], 1))

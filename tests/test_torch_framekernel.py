@@ -137,7 +137,8 @@ def test_frame_tiles_refuses_a_bad_shard(stride, base, n_local, n_real):
 def test_constants_and_entries_match_the_cuda_source():
     """MAX_STACK and TILE are frame.cu's RT_MAX_STACK and RT_TILE; every
     frame entry the wrappers call is declared with as many arguments as
-    _build.SIGNATURES gives it, and frame.cu declares no other entry."""
+    _build.SIGNATURES gives it (the root tables' two last, before the
+    stream), and frame.cu declares no other entry."""
     src = open(os.path.join(_build.CSRC, "frame.cu")).read()
     defs = dict(re.findall(r"#define (RT_\w+) (\d+)", src))
     assert (int(defs["RT_MAX_STACK"]), int(defs["RT_TILE"])) == (MAX_STACK,
@@ -145,10 +146,13 @@ def test_constants_and_entries_match_the_cuda_source():
     params = re.search(r"#define RT_FRAME_PARAMS(.*?)\n#define", src,
                        re.S).group(1)
     n_frame = params.count(",") + 1
+    roots = re.search(r"#define RT_ROOT_PARAMS (.*)\n", src).group(1)
+    assert roots.count(",") + 1 == 2
     for entry, extra in (("rt_frame", 1), ("rt_frame_tiles", 5)):
-        assert re.search(rf'extern "C" int {entry}\(RT_FRAME_PARAMS', src), \
-            entry
-        assert len(_build.SIGNATURES[entry]) == n_frame + extra, entry
+        assert re.search(rf'extern "C" int {entry}\(RT_FRAME_PARAMS,'
+                         rf'[^)]*RT_ROOT_PARAMS, void\* stream\)', src), entry
+        assert len(_build.SIGNATURES[entry]) == n_frame + 2 + extra, entry
+        assert _build.SIGNATURES[entry][-3:-1] == [_build._P, _build._I]
     assert re.search(r'extern "C" int rt_frame_occupancy\(int walk, int\* '
                      r'out\)', src)
     assert len(_build.SIGNATURES["rt_frame_occupancy"]) == 2

@@ -391,13 +391,21 @@ def test_load_instanced_equal(tmp_path):
              jax_scene.instance_transform((1.0, 2.0, 3.0), 1.5, 20.0))
 
 
+def _boxes(n, seed):
+    """``n`` random (lo | hi) boxes."""
+    rng = np.random.default_rng(seed)
+    lo = rng.normal(size=(n, 3)).astype(np.float32)
+    return np.concatenate([lo, lo + rng.uniform(0, 1, (n, 3))], 1).astype(
+        np.float32)
+
+
 def test_super_bounds_cover_their_clusters():
-    assert scene.super_bounds(np.zeros((32, 6), np.float32)).shape == (0, 6)
-    rng = np.random.default_rng(6)
-    lo = rng.normal(size=(70, 3)).astype(np.float32)
-    cb = np.concatenate([lo, lo + rng.uniform(0, 1, (70, 3))], 1).astype(np.float32)
-    sb = scene.super_bounds(cb)
+    for boxes in scene.box_levels(np.zeros((32, 6), np.float32)):
+        assert boxes.shape == (0, 6)
+    cb = _boxes(70, 6)
+    sb, rb = scene.box_levels(cb)
     assert sb.shape == (3, 6) and sb.dtype == np.float32
+    assert rb.shape == (0, 6)
     for s in range(3):
         part = cb[32 * s:32 * s + 32]
         _eq_tree(sb[s], np.concatenate([part[:, :3].min(0), part[:, 3:].max(0)]))
@@ -407,9 +415,97 @@ def test_uploader_takes_either_package_scene():
     mesh_env = (prim.make_icosphere(3, 1.2), prim.make_gradient_envmap(16, 32))
     ours = scene.scene_from_jax(scene.build_scene(*mesh_env, 8)[0], "cpu")
     ref = scene.scene_from_jax(jax_scene.build_scene(*mesh_env, 8)[0], "cpu")
-    for name in (*scene.UPLOADED, "super_bounds"):
+    for name in (*scene.UPLOADED, "super_bounds", "root_bounds"):
         assert torch.equal(getattr(ours, name), getattr(ref, name)), name
     assert ours.num_supers == 160 // 32 and ours.sub_tris == ref.sub_tris == 8
+    assert ours.num_roots == 0
+
+
+# ---- the root stage: the port's alone past 1,024 clusters ---------------
+
+def _rows(pos):
+    """Triangles as sorted rows of [A | e1 | e2], to compare as sets."""
+    rows = np.concatenate([pos[:, 0], pos[:, 1] - pos[:, 0],
+                           pos[:, 2] - pos[:, 0]], 1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def test_root_bounds_cover_their_supers():
+    """3,200 clusters: 100 supers under 4 roots, each root the box of its
+    run of 32 supers."""
+    sb, rb = scene.box_levels(_boxes(3200, 7))
+    assert sb.shape == (100, 6)
+    assert rb.shape == (4, 6) and rb.dtype == np.float32
+    for q in range(4):
+        part = sb[32 * q:32 * q + 32]
+        _eq_tree(rb[q], np.concatenate([part[:, :3].min(0),
+                                        part[:, 3:].max(0)]))
+
+
+def test_root_stage_makes_each_run_of_32_supers_a_node_of_the_split():
+    """20,480 triangles at clusters of 8: 2,560 clusters, 80 supers, 3
+    roots. Each aligned run of 32 supers holds the triangles of one node
+    of the root stage's split, which the three-stage order of the JAX
+    package does not; the table is a permutation of the mesh."""
+    mesh = prim.make_icosphere(5, 1.2)
+    host, meta = scene.build_scene(mesh, prim.make_gradient_envmap(16, 32), 8)
+    ts = scene.scene_from_jax(host, "cpu")
+    assert (ts.num_roots, ts.num_supers, ts.num_clusters) == (3, 80, 2560)
+    assert meta.num_padded_tris == mesh.num_tris
+    packed = host.tri_packed
+    np.testing.assert_array_equal(
+        packed[np.lexsort(packed.T[::-1])], _rows(mesh.positions))
+    window = scene.SUPER_CLUSTERS ** 2 * 8
+    nodes = morton.median_split_order(mesh.positions, (window,))
+    three = morton.median_split_order(mesh.positions, (32 * 8, 8, 8))
+    apart = 0
+    for q in range(ts.num_roots):
+        run = slice(q * window, (q + 1) * window)
+        got = packed[run][np.lexsort(packed[run].T[::-1])]
+        np.testing.assert_array_equal(got, _rows(mesh.positions[nodes[run]]))
+        apart += not np.array_equal(got, _rows(mesh.positions[three[run]]))
+    assert apart == ts.num_roots
+    # The uploaded root boxes are those of their runs of supers.
+    _eq_tree(ts.root_bounds.numpy(),
+             scene.box_levels(host.cluster_bounds)[1])
+    for q in range(ts.num_roots):
+        part = ts.super_bounds.numpy()[32 * q:32 * q + 32]
+        _eq_tree(ts.root_bounds.numpy()[q],
+                 np.concatenate([part[:, :3].min(0), part[:, 3:].max(0)]))
+
+
+@pytest.mark.parametrize("clusters,roots,supers", [
+    (32, 0, 0), (33, 0, 2), (1024, 0, 32), (1025, 2, 33), (3200, 4, 100),
+    (32768, 32, 1024), (32769, 0, 1025), (51200, 0, 1600)])
+def test_level_sizes_keep_roots_to_one_group_of_32(clusters, roots, supers):
+    """Supers past 32 clusters, roots past 32 supers, and no roots past 32
+    of them (more than 32,768 clusters), where the supers walk takes its
+    supers in groups; `box_levels` and `check_scene_tables` follow."""
+    assert scene.level_sizes(clusters) == (roots, supers)
+    sb, rb = scene.box_levels(np.zeros((clusters, 6), np.float32))
+    assert (rb.shape[0], sb.shape[0]) == (roots, supers)
+
+
+@pytest.mark.parametrize("n,stages", [(8192, 3), (8193, 4)])
+def test_root_stage_starts_past_1024_clusters(n, stages):
+    """The first 8,192 (1,024 clusters of 8) and 8,193 triangles of a
+    sphere: the order is the three-stage split, bit-equal to the JAX
+    package's build, up to 1,024 clusters and the four-stage one past
+    it."""
+    full = prim.make_icosphere(5, 1.2)
+    mesh = objmesh.MeshData(full.positions[:n], full.normals[:n],
+                            full.uvs[:n])
+    env = prim.make_gradient_envmap(16, 32)
+    host, _ = scene.build_scene(mesh, env, 8)
+    levels = (32 * 32 * 8, 32 * 8, 8, 8)[4 - stages:]
+    order = morton.median_split_order(mesh.positions, levels)
+    np.testing.assert_array_equal(host.tri_a[:n], mesh.positions[order, 0])
+    jax_host = jax_scene.build_scene(
+        jax_obj.MeshData(mesh.positions, mesh.normals, mesh.uvs), env, 8)[0]
+    assert np.array_equal(host.tri_packed,
+                          np.asarray(jax_host.tri_packed)) == (stages == 3)
+    ts = scene.scene_from_jax(host, "cpu")
+    assert ts.num_roots == (2 if stages == 4 else 0)
 
 
 # ---- stats and viewer ---------------------------------------------------

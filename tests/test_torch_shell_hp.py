@@ -3,12 +3,13 @@
 
 On the CPU, without building its scene: the configuration's mesh has the
 triangle count its two icospheres give, and at `scene.auto_cluster_size`
-its tables have 3,200 clusters and 100 super boxes, more than 32, so the
-frame kernel walks its supers in groups (`framekernel.walk_levels`). The
-port's CPU path renders the configuration's ``render`` block on a tiny
-nested shell as the benchmark's plain reference does, and `run.main`'s
-scene log line names the walk and its levels (also for config5's
-20,480-triangle sphere, which takes the supers walk at its size)."""
+its tables have 3,200 clusters and 100 super boxes, more than 32, under 4
+root boxes, so the frame kernel walks roots (`framekernel.walk_levels`).
+The port's CPU path renders the configuration's ``render`` block on a
+tiny nested shell as the benchmark's plain reference does, and
+`run.main`'s scene log line names the walk and its levels (also for
+config5's 20,480-triangle sphere, which takes the supers walk at its
+size)."""
 
 import json
 import logging
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from refraction_tpu_torch import run
+from refraction_tpu_torch.bvh.morton import median_split_order
 from refraction_tpu_torch.camera import orbit_camera
 from refraction_tpu_torch.fixtures import write_scene
 from refraction_tpu_torch.io.objmesh import MeshData
@@ -33,9 +35,9 @@ from refraction_tpu_torch.scene import (
     SUB_TRIS,
     TorchScene,
     auto_cluster_size,
+    box_levels,
     build_scene,
     scene_from_jax,
-    super_bounds,
 )
 from rtbench import harness, inputs, spec
 from rtbench.reference import tracer
@@ -53,13 +55,14 @@ def _tables(num_tris: int, cluster_size: int) -> TorchScene:
     written: `torch.empty`)."""
     clusters = num_tris // cluster_size
     e = lambda *shape: torch.empty(*shape, dtype=torch.float32)  # noqa: E731
+    supers, roots = box_levels(np.zeros((clusters, 6), np.float32))
     return TorchScene(
         tri_a=e(num_tris, 3), tri_e1=e(num_tris, 3), tri_e2=e(num_tris, 3),
         tri_packed=e(num_tris, 9), tri_norm_packed=e(num_tris, 9),
         cluster_bounds=e(clusters, 6), sub_bounds=e(num_tris // SUB_TRIS, 6),
         envmap=e(4, 8, 3), tri_mask=None,
-        super_bounds=torch.from_numpy(
-            super_bounds(np.zeros((clusters, 6), np.float32))),
+        super_bounds=torch.from_numpy(supers),
+        root_bounds=torch.from_numpy(roots),
         sub_tris=SUB_TRIS)
 
 
@@ -73,16 +76,43 @@ def test_shell_hp_takes_the_grouped_supers_walk():
     cs = auto_cluster_size(mesh["tris"])
     assert cs == 512 and mesh["tris"] % cs == 0
     scene = _tables(mesh["tris"], cs)
-    check_scene_tables(scene, torch.device("cpu"))  # the supers' shape rule
-    assert walk_levels(scene) == {"walk": "supers", "supers": 100,
-                                  "groups": 4, "clusters": 3200,
-                                  "subs_per_cluster": 64}
-    assert scene.num_supers > 32  # more than one group at the top level
+    check_scene_tables(scene, torch.device("cpu"))  # the boxes' shape rule
+    assert walk_levels(scene) == {"walk": "roots", "roots": 4, "supers": 100,
+                                  "clusters": 3200, "subs_per_cluster": 64}
+    assert scene.num_supers > 32  # so a level of roots above them
     assert CONFIG["reduced"] == ["mesh"]
     bench = spec.load_bench()
     cell = next(w for w in bench["workloads"] if w["name"] == "shell_hp.orbit")
     assert (cell["config"], cell["traffic"], cell["chips"]) == (
         "shell_hp", "orbit", 1)
+
+
+def test_nested_shell_at_clusters_of_8_has_shell_hps_top_levels():
+    """The GPU tier's stand-in for shell_hp's top levels: the 25,600-tri
+    nested shell at clusters of 8 has 3,200 clusters, 100 supers and 4
+    roots, walked as roots; each root's box holds its triangles, and its
+    triangles are one node of the build's root-stage split."""
+    pos, nrm, uv = inputs.nested_shell(5, 1.2, 4, 0.9)
+    host, _ = build_scene(MeshData(pos, nrm, uv), make_gradient_envmap(16, 32),
+                          8)
+    scene = scene_from_jax(host, "cpu")
+    check_scene_tables(scene, torch.device("cpu"))
+    assert walk_levels(scene) == {"walk": "roots", "roots": 4, "supers": 100,
+                                  "clusters": 3200, "subs_per_cluster": 1}
+    window = 32 * 32 * 8
+    nodes = median_split_order(pos, (window,))
+    for q in range(4):  # the last root holds 4 supers
+        run = slice(q * window, (q + 1) * window)
+        node = pos[nodes[run]].reshape(-1, 3)
+        np.testing.assert_array_equal(
+            scene.root_bounds[q].numpy(),
+            np.concatenate([node.min(0), node.max(0)]))
+        tri = pos[nodes[run]]
+        want = np.concatenate([tri[:, 0], tri[:, 1] - tri[:, 0],
+                               tri[:, 2] - tri[:, 0]], 1)
+        got = np.ascontiguousarray(host.tri_packed[run])
+        assert (np.sort(got.view("V36").ravel())
+                == np.sort(want.view("V36").ravel())).all(), q
 
 
 @pytest.mark.parametrize("angles", [[0.3, 2.9], [4.7]])
@@ -118,9 +148,9 @@ def _scene_line(caplog) -> str:
 
 
 def test_cli_logs_the_walk_and_its_levels(tmp_path, caplog, monkeypatch):
-    """The flat walk on a small ball; the supers walk in three groups when
-    the scene is built at clusters of 8 (20,480 triangles: 2,560 clusters,
-    80 supers)."""
+    """The flat walk on a small ball; the roots walk when the scene is
+    built at clusters of 8 (20,480 triangles: 2,560 clusters, 80 supers
+    under 3 roots)."""
     obj, hdr = write_scene(str(tmp_path), "ball", make_icosphere(2, 1.2),
                            make_gradient_envmap(16, 32))
     argv = ["--scene", obj, "--envmap", hdr, "--width", "8", "--height", "6",
@@ -128,8 +158,8 @@ def test_cli_logs_the_walk_and_its_levels(tmp_path, caplog, monkeypatch):
     with caplog.at_level(logging.INFO, logger="refraction_tpu"):
         assert run.main(argv) == 0
     assert _scene_line(caplog) == (
-        "tris=320 (padded 1024), envmap=(16, 32, 3), walk=flat: 0 supers in "
-        "0 groups, 1 clusters, 128 subs a cluster")
+        "tris=320 (padded 1024), envmap=(16, 32, 3), walk=flat: 0 roots, 0 "
+        "supers, 1 clusters, 128 subs a cluster")
 
     def fine_scene(cfg):
         return build_scene(make_icosphere(5, 1.2),
@@ -140,14 +170,14 @@ def test_cli_logs_the_walk_and_its_levels(tmp_path, caplog, monkeypatch):
     with caplog.at_level(logging.INFO, logger="refraction_tpu"):
         assert run.main(argv) == 0
     assert _scene_line(caplog) == (
-        "tris=20480 (padded 20480), envmap=(16, 32, 3), walk=supers: 80 "
-        "supers in 3 groups, 2560 clusters, 1 subs a cluster")
+        "tris=20480 (padded 20480), envmap=(16, 32, 3), walk=roots: 3 "
+        "roots, 80 supers, 2560 clusters, 1 subs a cluster")
 
 
 def test_cli_logs_the_supers_walk_of_config5s_sphere(tmp_path, caplog):
     """config5's 20,480-triangle sphere as `load_scene` builds it (at
     `auto_cluster_size`, 128 from 1,101 to 32,768 triangles): the supers
-    walk, 5 supers in one group over 160 clusters of 16 subs."""
+    walk, 5 supers and no roots over 160 clusters of 16 subs."""
     obj, hdr = write_scene(str(tmp_path), "ott", make_icosphere(5, 1.2),
                            make_gradient_envmap(16, 32))
     argv = ["--scene", obj, "--envmap", hdr, "--width", "6", "--height", "4",
@@ -155,5 +185,5 @@ def test_cli_logs_the_supers_walk_of_config5s_sphere(tmp_path, caplog):
     with caplog.at_level(logging.INFO, logger="refraction_tpu"):
         assert run.main(argv) == 0
     assert _scene_line(caplog) == (
-        "tris=20480 (padded 20480), envmap=(16, 32, 3), walk=supers: 5 "
-        "supers in 1 groups, 160 clusters, 16 subs a cluster")
+        "tris=20480 (padded 20480), envmap=(16, 32, 3), walk=supers: 0 "
+        "roots, 5 supers, 160 clusters, 16 subs a cluster")

@@ -47,43 +47,58 @@ def _overlap(box, o, d, tmin, tmax):
 
 def _table_walk(scene, o, d, tmin, t_hit, cull):
     """Per ray: every box of the table on [tmin, t_hit], level by level."""
-    sup, cl, sb = (x.numpy() for x in (scene.super_bounds, scene.cluster_bounds,
-                                       scene.sub_bounds))
+    root, sup, cl, sb = (x.numpy() for x in (
+        scene.root_bounds, scene.super_bounds, scene.cluster_bounds,
+        scene.sub_bounds))
     spc = scene.cluster_size // scene.sub_tris
-    out = np.zeros((o.shape[0], 4), np.int64)
+    out = np.zeros((o.shape[0], 5), np.int64)
+
+    def inside(ov, parents, n_child):
+        return [c for p in parents if ov(p[1])
+                for c in range(p[0] * SUPER_CLUSTERS,
+                               min((p[0] + 1) * SUPER_CLUSTERS, n_child))]
+
     for i in range(o.shape[0]):
         if cull[i] == 0:
             continue
         ov = lambda box: _overlap(box, o[i], d[i], tmin, t_hit[i])  # noqa: E731
+        if len(root):
+            out[i, 0] = len(root)
+            supers = inside(ov, enumerate(root), len(sup))
+        else:
+            supers = list(range(len(sup)))
         if len(sup):
-            out[i, 0] = len(sup)
-            cands = [c for s in range(len(sup)) if ov(sup[s])
-                     for c in range(s * SUPER_CLUSTERS,
-                                    min((s + 1) * SUPER_CLUSTERS, len(cl)))]
+            out[i, 1] = len(supers)
+            cands = inside(ov, ((s, sup[s]) for s in supers), len(cl))
         else:
             cands = list(range(len(cl)))
-        out[i, 1] = len(cands)
+        out[i, 2] = len(cands)
         for c in (c for c in cands if ov(cl[c])):
-            out[i, 2] += spc
-            out[i, 3] += scene.sub_tris * sum(
+            out[i, 3] += spc
+            out[i, 4] += scene.sub_tris * sum(
                 ov(sb[s]) for s in range(c * spc, (c + 1) * spc))
     return out
 
 
-@pytest.mark.parametrize("subdiv,cs", [(2, 32), (2, 8), (3, 8)],
-                         ids=["flat", "supers", "supers-5"])
+@pytest.mark.parametrize("subdiv,cs", [(2, 32), (2, 8), (3, 8), (5, 8)],
+                         ids=["flat", "supers", "supers-5", "roots"])
 def test_counts_equal_the_full_table_walk(subdiv, cs):
     scene = _scene(subdiv, cs)
     assert (scene.num_supers > 0) == (cs == 8)
+    assert scene.num_roots == (3 if subdiv == 5 else 0)
     o, d, cull = _rays(96, subdiv)
     t_hit = torch.full((96,), float("inf"))
     got = traversal_work(scene, o, d, 1e-3, t_hit, cull)
     want = _table_walk(scene, o.numpy(), d.numpy(), 1e-3, t_hit.numpy(),
                        cull.numpy())
-    keys = ("super_tests", "cluster_tests", "sub_tests", "mt_tests")
+    keys = ("root_tests", "super_tests", "cluster_tests", "sub_tests",
+            "mt_tests")
     np.testing.assert_array_equal(np.stack([got[k].numpy() for k in keys], 1),
                                   want)
     assert int(got["mt_tests"].sum()) > 0
+    if scene.num_roots:  # a ray tests only the supers of the roots it crosses
+        live = int((cull != 0).sum())
+        assert 0 < int(got["super_tests"].sum()) < live * scene.num_supers
 
 
 @pytest.mark.parametrize("cs", [32, 8])

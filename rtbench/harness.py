@@ -5,8 +5,11 @@ The window drives the program's own frame path, calling it as
 its PNG encode, whose loop body cannot be called on its own):
 
 - set-up builds the scene from the benchmark's inputs
-  (`scene.build_scene` at `scene.auto_cluster_size`, uploaded by
-  `scene.scene_from_jax`) and the renderer (`render.make_renderer` with
+  (`scene.build_scene` at `scene.auto_cluster_size`, or for a scene of
+  placed instances `scene.build_instanced_scene`; uploaded by
+  `scene.scene_from_jax`), logs the walk the frame kernel takes over it
+  (`framekernel.walk_levels`) with its triangles and visible instances,
+  and builds the renderer (`render.make_renderer` with
   backend ``cuda``: `build_scalars` and one `fused_radiance` launch,
   ``rt_frame``, a frame), then warms the loop up;
 - each frame takes its pose from `camera.orbit_camera` at an angle that
@@ -63,22 +66,74 @@ def render_config(render: dict):
 
 
 class Program:
-    """The system under test, built at set-up from the seed's inputs."""
+    """The system under test, built at set-up from the seed's inputs.
+
+    A configuration's ``mesh`` is built by `scene.build_scene` at
+    `scene.auto_cluster_size`; its ``scene`` of placed instances by
+    `scene.build_instanced_scene`, which picks the cluster size, from one
+    `MeshData` a named mesh shared by its instances (as
+    `scene.load_instanced` shares one a path). ``mesh`` or ``placed`` (the
+    named meshes and the instances) keeps what the reference is made from
+    after the window."""
 
     def __init__(self, config: dict, seed: int, device: torch.device):
         from refraction_tpu_torch.io.objmesh import MeshData
         from refraction_tpu_torch.render import make_renderer
         from refraction_tpu_torch.scene import (
-            auto_cluster_size, build_scene, scene_from_jax)
+            Instance, auto_cluster_size, build_instanced_scene, build_scene,
+            scene_from_jax)
 
-        self.mesh = inputs.make_mesh(config["mesh"])
+        self.mesh = self.placed = None
         env = config["env"]
-        self.env = inputs.make_env(seed, env["height"], env["width"], device)
-        host, _ = build_scene(MeshData(*self.mesh), self.env.cpu().numpy(),
-                              auto_cluster_size(self.mesh[0].shape[0]))
+        if "scene" in config:
+            self.placed = inputs.make_instances(config["scene"])
+            self.env = inputs.make_env(seed, env["height"], env["width"],
+                                       device)
+            meshes, placed = self.placed
+            data = {name: MeshData(*m) for name, m in meshes.items()}
+            host, meta = build_instanced_scene(
+                [Instance(data[name], m, mask) for name, m, mask in placed],
+                self.env.cpu().numpy(), None)
+            self.visible = inputs.visible_counts(*self.placed)[1]
+        else:
+            self.mesh = inputs.make_mesh(config["mesh"])
+            self.env = inputs.make_env(seed, env["height"], env["width"],
+                                       device)
+            host, meta = build_scene(MeshData(*self.mesh),
+                                     self.env.cpu().numpy(),
+                                     auto_cluster_size(self.mesh[0].shape[0]))
+            self.visible = 1
+        self.num_tris = meta.num_real_tris
         self.scene = scene_from_jax(host, device)
         self.cfg = render_config(config["render"])
         self.renderer = make_renderer(self.cfg, "cuda", device)
+
+    def scene_line(self) -> str:
+        """The walk the frame kernel takes over this scene, and its
+        counts."""
+        from refraction_tpu_torch.kernels.framekernel import walk_levels
+
+        lv = walk_levels(self.scene)
+        return (f"scene: walk={lv['walk']}: {lv['roots']} roots, "
+                f"{lv['supers']} supers, {lv['clusters']} clusters, "
+                f"{lv['subs_per_cluster']} subs a cluster; {self.num_tris} "
+                f"tris, {self.visible} visible instances")
+
+
+def reference_scenes(mesh, placed, env: torch.Tensor, device,
+                     control: bool):
+    """The reference's scene (and with ``control`` the control's, in
+    bfloat16) of a configuration's ``mesh``, or of its ``placed``
+    instances baked by rtbench itself (`inputs.bake_instances`), with
+    their ranges and boxes for the cull."""
+    inst = None
+    if placed is not None:
+        pos, nrm, ranges, boxes = inputs.bake_instances(*placed)
+        mesh, inst = (pos, nrm), (ranges, boxes)
+    sc = tracer.Scene(mesh[0], mesh[1], env, device, instances=inst)
+    ctl = (tracer.Scene(mesh[0], mesh[1], env, device, torch.bfloat16,
+                        instances=inst) if control else None)
+    return sc, ctl
 
 
 @dataclasses.dataclass
@@ -218,6 +273,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
     render = config["render"]
     kind = traffic["check"]
     prog = Program(config, seed, device)
+    log(prog.scene_line())
     # The u8 display image for the u8 check, the float radiance to fold.
     copies = HostCopies(device, u8=kind == "u8", radiance=kind != "u8",
                         linear=False)
@@ -306,14 +362,12 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
     acc_sum = (acc.sum.reshape(-1, 3)[pixel_sets[0]].copy()
                if acc is not None else None)
     acc_count = acc.count if acc is not None else 0
-    mesh, env = prog.mesh, prog.env
+    mesh, placed, env = prog.mesh, prog.placed, prog.env
     del prog, copies, acc
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_c = time.perf_counter()
-    sc = tracer.Scene(mesh[0], mesh[1], env, device)
-    ctl = (tracer.Scene(mesh[0], mesh[1], env, device, torch.bfloat16)
-           if control else None)
+    sc, ctl = reference_scenes(mesh, placed, env, device, control)
     control_numbers = None
     if kind == "u8":
         chosen = frames_to_check(seed, n, check.CHECK_FRAMES)
@@ -350,7 +404,9 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
     ctx = {"trace": tr, "roofline": None}
     if tr is not None:
         counts = roofline.ray_counts(sc, render, rec.angles[mid])
-        ctx["roofline"] = roofline.bound(counts, sc.num_tris, render)
+        ctx["roofline"] = roofline.bound(
+            counts, sc.num_tris, render,
+            instanced=inputs.visible_counts(*placed) if placed else None)
         dev["busy_s"] = tr.busy_us() * 1e-6
         dev["window_s"] = tr.window_us * 1e-6
         result.breakdown = {"device_ops": tr.device_ops(),

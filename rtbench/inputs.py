@@ -10,7 +10,14 @@ the program cannot move the yardstick:
   shell.obj, an outer icosphere and an inward-wound inner one;
 - `make_env`: a seeded, textured equirect map (the upstream's
   envMap.hdr is not in the repository);
-- `start_angle`: the orbit's first angle.
+- `start_angle`: the orbit's first angle;
+- `make_instances`: a configuration's ``scene`` of placed instances, in
+  the port's ``--instances`` format with each OBJ path replaced by a
+  named mesh of `make_mesh`; `instance_transform` composes its matrices
+  (a copy of refraction_tpu_torch/scene.py's convention: scale, then a
+  rotation about +Y, then a translation);
+- `bake_instances`: the reference's own bake of those instances into
+  world space.
 
 Neither the seed nor the map changes the cost of a frame much, so the
 cells stay comparable across seeds.
@@ -142,3 +149,109 @@ def make_env(seed: int, height: int, width: int,
         env += amp * F.interpolate(grid, size=(height, width),
                                    mode="bilinear", align_corners=False)
     return env[0].permute(1, 2, 0).contiguous()
+
+
+def instance_transform(translate=(0.0, 0.0, 0.0), scale=1.0,
+                       rotate_y_deg=0.0) -> np.ndarray:
+    """(3, 4) float32 row-major object-to-world matrix: scale (a number or
+    three), then a rotation about +Y, then a translation."""
+    s = np.asarray(scale, np.float32) * np.ones(3, np.float32)
+    c, sn = np.cos(np.radians(rotate_y_deg)), np.sin(np.radians(rotate_y_deg))
+    rot = np.array([[c, 0.0, sn], [0.0, 1.0, 0.0], [-sn, 0.0, c]], np.float32)
+    m = np.zeros((3, 4), np.float32)
+    m[:, :3] = rot * s[None, :]
+    m[:, 3] = np.asarray(translate, np.float32)
+    return m
+
+
+INSTANCE_KEYS = {"mesh", "translate", "scale", "rotate_y_deg", "transform",
+                 "mask"}
+PLACEMENT_KEYS = {"translate", "scale", "rotate_y_deg"}
+
+
+def make_instances(spec: dict):
+    """The meshes and instances a configuration's ``scene`` entry names:
+    ``{"kind": "instances", "meshes": {name: make_mesh spec},
+    "instances": [{"mesh": name, "translate": [x, y, z], "scale": s or
+    [sx, sy, sz], "rotate_y_deg": d, "mask": m}, ...]}``, where an entry
+    may give ``"transform"`` (3x4, row-major) in place of the placement
+    fields. Returns ({name: (positions, normals, uvs)}, [(name, (3, 4)
+    float32 matrix, mask)]), each named mesh made once. Raises on an
+    unknown kind, mesh name or key, a transform that is not 3x4 or is
+    singular in float32, and a scene whose every instance is masked out
+    (mask & 0xFF == 0), which no ray could see."""
+    if spec.get("kind") != "instances":
+        raise ValueError(f"unknown scene kind {spec.get('kind')!r}")
+    named = spec.get("meshes")
+    if not isinstance(named, dict) or not named:
+        raise ValueError("scene: 'meshes' must name at least one mesh")
+    entries = spec.get("instances")
+    if not isinstance(entries, list) or not entries:
+        raise ValueError("scene: 'instances' must list at least one instance")
+    placed = []
+    for k, ent in enumerate(entries):
+        extra = set(ent) - INSTANCE_KEYS
+        if extra:
+            raise ValueError(f"instance {k}: unknown keys {sorted(extra)}")
+        if ent.get("mesh") not in named:
+            raise ValueError(f"instance {k}: unknown mesh {ent.get('mesh')!r} "
+                             f"(have {', '.join(sorted(named))})")
+        if "transform" in ent:
+            if set(ent) & PLACEMENT_KEYS:
+                raise ValueError(f"instance {k}: 'transform' and "
+                                 f"{sorted(set(ent) & PLACEMENT_KEYS)} both")
+            m = np.asarray(ent["transform"], np.float32)
+        else:
+            m = instance_transform(ent.get("translate", (0.0, 0.0, 0.0)),
+                                   ent.get("scale", 1.0),
+                                   ent.get("rotate_y_deg", 0.0))
+        if m.shape != (3, 4) or not np.isfinite(m).all():
+            raise ValueError(f"instance {k}: transform must be 3x4 and "
+                             f"finite, got {m.shape}")
+        sv = np.linalg.svd(m[:, :3].astype(np.float64), compute_uv=False)
+        if not sv[-1] > sv[0] * np.finfo(np.float32).eps * 16:
+            raise ValueError(f"instance {k}: transform is singular "
+                             f"(singular values {sv.tolist()})")
+        placed.append((ent["mesh"], m, int(ent.get("mask", 1))))
+    if not any(mask & 0xFF for _, _, mask in placed):
+        raise ValueError("scene: every instance is masked out "
+                         "(mask & 0xff == 0)")
+    return {name: make_mesh(s) for name, s in named.items()}, placed
+
+
+def bake_instances(meshes: dict, instances: list):
+    """The reference's world-space scene of `make_instances`' output:
+    (positions (T, 3, 3), normals (T, 3, 3)) float32, (I, 2) int64 ranges
+    of global triangle indices and (I, 2, 3) float32 world boxes, one a
+    visible instance, in the order listed. Masked-out instances (mask &
+    0xFF == 0; the rays' InstanceInclusionMask is 0xFF, RayTracing.hlsl:
+    60,106,121) are left out. Positions go through the affine map and
+    normals through the inverse transpose of its linear part, in float64
+    before the cast; normals are not renormalised (the shader normalises
+    after the lerp, hlsl:83-86)."""
+    pos, nrm, ranges, boxes = [], [], [], []
+    start = 0
+    for name, m, mask in instances:
+        if not mask & 0xFF:
+            continue
+        lin = m[:, :3].astype(np.float64)
+        p = (meshes[name][0].astype(np.float64) @ lin.T
+             + m[:, 3].astype(np.float64)).astype(np.float32)
+        n = (meshes[name][1].astype(np.float64)
+             @ np.linalg.inv(lin)).astype(np.float32)
+        pos.append(p)
+        nrm.append(n)
+        ranges.append((start, start + p.shape[0]))
+        boxes.append((p.min(axis=(0, 1)), p.max(axis=(0, 1))))
+        start += p.shape[0]
+    return (np.concatenate(pos), np.concatenate(nrm),
+            np.asarray(ranges, np.int64), np.asarray(boxes, np.float32))
+
+
+def visible_counts(meshes: dict, instances: list) -> tuple[int, int]:
+    """(unique triangles, visible instances) of a scene of instances: the
+    triangles of each named mesh that a visible instance places, counted
+    once, and the instances with mask & 0xFF != 0."""
+    shown = [name for name, _, mask in instances if mask & 0xFF]
+    return (sum(meshes[name][0].shape[0] for name in set(shown)),
+            len(shown))

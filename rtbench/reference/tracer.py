@@ -102,10 +102,17 @@ def camera(angle: float, render: dict):
 class Scene:
     """The mesh and map on ``device`` in ``dtype``: each triangle's first
     corner and two edges, its corner normals as nA, nB - nA, nC - nA, and
-    the map."""
+    the map.
+
+    ``instances``, for a scene of placed instances (`rtbench.inputs.
+    bake_instances`), is ((I, 2) ranges of global triangle indices, (I, 2,
+    3) world boxes of their corners): `closest_hit` then tests a ray only
+    against the instances whose box, padded by `box_pad`, its segment
+    meets."""
 
     def __init__(self, positions: np.ndarray, normals: np.ndarray,
-                 env: torch.Tensor, device, dtype=torch.float32):
+                 env: torch.Tensor, device, dtype=torch.float32,
+                 instances=None):
         pos = torch.as_tensor(np.asarray(positions, np.float32), device=device)
         nrm = torch.as_tensor(np.asarray(normals, np.float32), device=device)
         self.dtype = dtype
@@ -118,6 +125,38 @@ class Scene:
         self.env = env.to(device=device, dtype=dtype)
         self.num_tris = int(pos.shape[0])
         self.chunk_elems = CHUNK_ELEMS_CUDA if pos.is_cuda else CHUNK_ELEMS
+        self.parts = None
+        if instances is not None:
+            ranges, boxes = instances
+            boxes = torch.as_tensor(np.asarray(boxes), device=device).double()
+            pad = box_pad(boxes, dtype)
+            self.box_lo = boxes[:, 0] - pad
+            self.box_hi = boxes[:, 1] + pad
+            self.starts = [int(lo) for lo, _ in ranges]
+            self.parts = [_Part(self, int(lo), int(hi)) for lo, hi in ranges]
+
+
+class _Part:
+    """One instance's triangles of a `Scene`, as views, for `closest_hit`."""
+
+    def __init__(self, sc: Scene, lo: int, hi: int):
+        self.a, self.e1, self.e2 = sc.a[lo:hi], sc.e1[lo:hi], sc.e2[lo:hi]
+        self.num_tris = hi - lo
+        self.chunk_elems = sc.chunk_elems
+        self.parts = None
+
+
+def box_pad(boxes: torch.Tensor, dtype) -> torch.Tensor:
+    """(I, 1) float64 pad of each (lo, hi) box in ``boxes`` (I, 2, 3):
+    sqrt(eps) of ``dtype`` times the box's largest coordinate plus its
+    largest extent. That is thousands of float32 roundings (3.5e-4 of the
+    scale) and eleven of bfloat16's: it covers the rounding of the corners
+    in ``dtype``, of a hit point that starts a child ray, and of
+    Moller-Trumbore's t, so that no triangle a ray can hit in ``dtype``
+    lies in a box its segment misses. Only a ray within about 1e-4 rad of
+    a triangle's plane could need more in float32."""
+    scale = boxes.abs().amax(dim=(1, 2)) + (boxes[:, 1] - boxes[:, 0]).amax(1)
+    return (math.sqrt(torch.finfo(dtype).eps) * scale)[:, None]
 
 
 def _dot(a, b):
@@ -126,7 +165,10 @@ def _dot(a, b):
 
 
 def closest_hit(sc: Scene, o, d, outside, tmin: float, tmax: float):
-    """(hit (N,), t, u, v, triangle (N,)) of N rays against every triangle."""
+    """(hit (N,), t, u, v, triangle (N,)) of N rays against every triangle
+    (for a scene of instances, `closest_hit_culled`)."""
+    if sc.parts is not None:
+        return closest_hit_culled(sc, o, d, outside, tmin, tmax)
     n = o.shape[0]
     chunk = max(1, sc.chunk_elems // max(sc.num_tris, 1))
     big = torch.tensor(float("inf"), dtype=o.dtype, device=o.device)
@@ -153,6 +195,60 @@ def closest_hit(sc: Scene, o, d, outside, tmin: float, tmax: float):
         rows = torch.arange(idx.shape[0], device=o.device)
         parts.append((t_best < big, t_best, u[rows, idx], v[rows, idx], idx))
     return tuple(torch.cat([p[k] for p in parts]) for k in range(5))
+
+
+def segment_meets(o, d, tmin: float, tmax: float, lo, hi):
+    """(N, I) bool: the segment o + t d, tmin <= t <= tmax, of each of N
+    rays meets each of I boxes [lo, hi] (I, 3): a slab test in float64,
+    where a ray parallel to a slab meets it only from inside."""
+    o64, d64 = o.double()[:, None, :], d.double()[:, None, :]
+    flat = d64 == 0
+    step = torch.where(flat, torch.ones_like(d64), d64)
+    t1, t2 = (lo[None] - o64) / step, (hi[None] - o64) / step
+    inside = (o64 >= lo[None]) & (o64 <= hi[None])
+    inf = torch.full_like(t1, math.inf)
+    near = torch.where(flat, torch.where(inside, -inf, inf),
+                       torch.minimum(t1, t2))
+    far = torch.where(flat, torch.where(inside, inf, -inf),
+                      torch.maximum(t1, t2))
+    t_in = torch.clamp(near.amax(dim=2), min=tmin)
+    t_out = torch.clamp(far.amin(dim=2), max=tmax)
+    return t_in <= t_out
+
+
+def closest_hit_culled(sc: Scene, o, d, outside, tmin: float, tmax: float):
+    """`closest_hit` of a scene of instances: each instance's triangles,
+    by `closest_hit`'s brute force, against the rays whose [tmin, tmax]
+    segment meets the instance's padded box, in the order of the global
+    indices. A later instance wins only at a smaller t, so a tie goes to
+    the lowest global index, and hit, t, u, v and the triangle of a ray
+    that hits equal the brute force's over every triangle (a miss has t
+    inf and triangle 0, as there, and u = v = 0, which nothing reads)."""
+    n = o.shape[0]
+    dev = o.device
+    t_best = torch.full((n,), float("inf"), dtype=o.dtype, device=dev)
+    u_best = torch.zeros(n, dtype=o.dtype, device=dev)
+    v_best = torch.zeros(n, dtype=o.dtype, device=dev)
+    idx_best = torch.zeros(n, dtype=torch.int64, device=dev)
+    # The slab test's (rows, I, 3) float64 temporaries hold about as many
+    # bytes as one temporary of the brute force.
+    rows = max(1, sc.chunk_elems // (6 * len(sc.parts)))
+    for s in range(0, n, rows):
+        meets = segment_meets(o[s:s + rows], d[s:s + rows], tmin, tmax,
+                              sc.box_lo, sc.box_hi)
+        for i, (lo, part) in enumerate(zip(sc.starts, sc.parts)):
+            ray = torch.nonzero(meets[:, i]).squeeze(1) + s
+            if ray.numel() == 0:
+                continue
+            hit, t, u, v, idx = closest_hit(part, o[ray], d[ray],
+                                            outside[ray], tmin, tmax)
+            win = hit & (t < t_best[ray])
+            ray = ray[win]
+            t_best[ray] = t[win]
+            u_best[ray] = u[win]
+            v_best[ray] = v[win]
+            idx_best[ray] = idx[win] + lo
+    return torch.isfinite(t_best), t_best, u_best, v_best, idx_best
 
 
 def env_texel(sc: Scene, d):

@@ -20,6 +20,14 @@ stale:
   misses of neighbouring pixels and nearby directions read the same
   texels, and the whole map fits in the card's L2, so no count of them
   per miss is a lower bound.
+- A scene of placed instances: each named mesh's triangles are charged
+  their bytes once, however many visible instances place it, and each
+  visible instance its 3x4 float32 transform (48 B), the least a walk
+  over shared meshes must read. Operations stay those of the N placed
+  triangles: since ceil(log2 I) + ceil(log2 T) >= ceil(log2 IT),
+  2 ceil(log2 N) box tests bound a two-level walk over I instances of T
+  triangles as well as a walk over the baked scene, so the count does
+  not depend on how the program builds it.
 
 Per-test operation counts and the peaks are frozen copies of the numbers
 in refraction_tpu_torch/ops/intersect.py (``BOX_TEST_OPS`` 25: 6
@@ -65,12 +73,20 @@ def ray_counts(sc: tracer.Scene, render: dict, angle: float) -> dict:
     return {k: v * scale for k, v in st.items()}
 
 
-def bound(counts: dict, num_tris: int, render: dict) -> dict:
-    """The frame's operations, bytes and the bound in ms they give."""
+def bound(counts: dict, num_tris: int, render: dict,
+          instanced: tuple[int, int] | None = None) -> dict:
+    """The frame's operations, bytes and the bound in ms they give, for
+    ``num_tris`` triangles in the world; ``instanced``, for a scene of
+    placed instances, is (unique triangles, visible instances)."""
     depth = math.ceil(math.log2(max(num_tris, 2)))
     ops = (counts["hits"] * (2 * depth * BOX_TEST_OPS + MT_TEST_OPS)
            + counts["misses"] * (BOX_TEST_OPS + ENV_RAY_OPS))
-    nbytes = num_tris * 2 * 9 * 4 + render["width"] * render["height"] * 3 * 4
+    if instanced is None:
+        read = num_tris * 2 * 9 * 4
+    else:
+        unique, visible = instanced
+        read = unique * 2 * 9 * 4 + visible * 12 * 4
+    nbytes = read + render["width"] * render["height"] * 3 * 4
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"ops": ops, "bytes": nbytes, "ops_ms": ops_ms,

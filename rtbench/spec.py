@@ -5,7 +5,17 @@ mix; each lives in a file of its own, found by name, and a missing file
 raises at once:
 
 - ``rtbench/configs/<config>.json``: the deployment (image, caps, camera,
-  mesh, map) with its source, ``assumed`` and ``reduced``;
+  mesh, map) with its source, ``assumed`` and ``reduced``. The scene is
+  either ``mesh``, one generated mesh (`rtbench.inputs.make_mesh`:
+  ``{"kind": "icosphere", ...}`` or ``{"kind": "nested_shell", ...}``),
+  or ``scene``, placed instances of named meshes in the port's
+  ``--instances`` format (`rtbench.inputs.make_instances`):
+  ``{"kind": "instances", "meshes": {name: mesh spec}, "instances":
+  [{"mesh": name, "translate": [x, y, z], "scale": s, "rotate_y_deg": d,
+  "mask": m} or {"mesh": name, "transform": 3x4, "mask": m}, ...]}``,
+  which the program builds with `scene.build_instanced_scene` and the
+  reference bakes itself; so a deployment of placed instances is a new
+  configuration file, and its cell new entries;
 - ``rtbench/traffic/<traffic>.json``: the mix's parameters, read by the
   one general loop (`rtbench.harness`);
 - ``rtbench/limits/<config>.<check>.json``: the limit of each number

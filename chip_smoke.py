@@ -86,8 +86,14 @@ Phases (any failure raises; nothing is caught):
      with every count set to 0 just before and read just after:
      ``--backend torch`` at 64x48 (no kernel launch; the PNG equal to the
      eager render's), ``--instances`` (three instances, one of
-     mask 0; 1024x768, 5/2 bounces, 4 frames; a 256x192 frame held
-     against the eager integrator over the closest-hit and env kernels),
+     mask 0; 1024x768, 5/2 bounces, 4 frames, each through the frame
+     kernel's instance walk, ``walks["instances"]``; a 256x192 frame of
+     the instance walk held against the eager integrator over the
+     closest-hit and env kernels, which render the scene's bake; then
+     the benchmark's rtiow_glass scene, 484 instances under 16 instance
+     roots, at 96x54 against the eager integrator over the two levels
+     through the walk's twin, and ``instance_hit`` equal to the twin on
+     its camera rays),
      ``--accumulate`` 4 frames then ``--resume`` 2 (equal to the mean of
      the 6 single frames to 1e-6), ``--heatmap`` at the demo shape (one
      round-kernel launch per bounce round; counts sum to count_live_rays
@@ -422,6 +428,113 @@ def bench_faults(res: dict, card: str, kind: str, build_dir: str) -> dict:
             k for k in BENCH_KEYS if k.endswith(("_ms", "_s", "value"))
             and k != "build_s" and k in res
             and not (isinstance(res[k], (int, float)) and res[k] > 0)]}
+
+
+def check_rtiow_glass(dev, counters) -> None:
+    """The instance walk at the benchmark's deployment: rtiow_glass's 484
+    instances (rtbench/configs/rtiow_glass.json, its meshes and placements
+    as the file lists them) under 16 instance roots, over two shared
+    BLASes of the supers walk. With every count set to 0 just before:
+    frames of the frame kernel (``walks["instances"]``) at 96x54 and the
+    configuration's render block, held against the eager integrator over
+    the two levels through the walk's eager twin, ``instance_hit_plain``,
+    on the card's tensors (no kernel), and the walk on a batch of the
+    same camera rays (``instance_hit``) equal to the twin on every ray."""
+    import numpy as np
+    import torch
+
+    from refraction_tpu_torch import RenderConfig
+    from refraction_tpu_torch.camera import generate_rays, orbit_camera
+    from refraction_tpu_torch.integrator import render_image
+    from refraction_tpu_torch.io.primitives import (
+        make_gradient_envmap, make_icosphere)
+    from refraction_tpu_torch.kernels.envmap import env_contribution_plain
+    from refraction_tpu_torch.kernels.framekernel import (
+        build_scalars, fused_radiance, walk_levels)
+    from refraction_tpu_torch.kernels.intersect import (
+        cull_code, instance_hit, instance_hit_plain)
+    from refraction_tpu_torch.render import sample_offsets
+    from refraction_tpu_torch.scene import (
+        Instance, build_instanced_scene, instance_transform, scene_from_jax)
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "rtbench", "configs", "rtiow_glass.json")
+    with open(path) as f:
+        config = json.load(f)
+    spec = config["scene"]
+    meshes = {}
+    for name, m in spec["meshes"].items():
+        if m["kind"] != "icosphere":
+            raise AssertionError(f"rtiow_glass mesh {name}: {m}")
+        meshes[name] = make_icosphere(m["subdiv"], m["radius"])
+    insts = [Instance(meshes[e["mesh"]],
+                      instance_transform(e["translate"], e["scale"],
+                                         e["rotate_y_deg"]),
+                      mask=e.get("mask", 1)) for e in spec["instances"]]
+    host, meta = build_instanced_scene(insts, make_gradient_envmap())
+    ts = scene_from_jax(host, dev)
+    lv = walk_levels(ts)
+    if (lv["walk"], lv["instances"], lv["instance_roots"]) != (
+            "instances", 484, 16) or meta.num_real_tris != spec["tris"]:
+        raise AssertionError(f"rtiow_glass scene: {lv}, "
+                             f"{meta.num_real_tris} tris")
+    fields = set(RenderConfig.__dataclass_fields__)
+    cfg = RenderConfig(**{k: v for k, v in config["render"].items()
+                          if k in fields}).replace(width=96, height=54)
+
+    def twin_intersect(scene, o, d, want_front, alive, tmin, tmax):
+        t, key, normal = instance_hit_plain(scene, o, d,
+                                            cull_code(want_front, alive),
+                                            tmin, tmax)
+        return key >= 0, t, key, normal
+
+    offsets = sample_offsets(cfg.spp)
+    angles = (0.2, 3.3)
+    for k in counters + (instance_hit,):
+        k.launches = 0
+    for name in fused_radiance.walks:
+        fused_radiance.walks[name] = 0
+    for angle in angles:
+        frame = orbit_camera(angle, cfg)
+        img_k = fused_radiance(ts, build_scalars(frame, cfg, offsets, dev),
+                               cfg)
+        img_e = render_image(ts, frame, cfg, offsets, dev, twin_intersect,
+                             env_contribution_plain)
+        check_image(f"rtiow_glass 96x54 angle {angle}: frame kernel "
+                    "(instance walk) vs eager integrator over the twin",
+                    image_diff(np, img_k, img_e))
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters + (instance_hit,)}
+    if (fused_radiance.walks["instances"] != len(angles)
+            or sum(launches.values()) != len(angles)
+            or ts._baked is not None):
+        raise AssertionError(f"rtiow_glass: walks {fused_radiance.walks}, "
+                             f"launches {launches}, bake built "
+                             f"{ts._baked is not None}")
+    rays = [generate_rays(orbit_camera(a, cfg), cfg.width, cfg.height, dev)
+            for a in angles]
+    o = torch.cat([r[0] for r in rays]).contiguous()
+    d = torch.cat([r[1] for r in rays]).contiguous()
+    hits = 0
+    for c in (1.0, -1.0):
+        cull = torch.full((o.shape[0],), c, device=dev)
+        got = instance_hit(ts, o, d, cull, cfg.primary_tmin,
+                           cfg.primary_tmax)
+        want = instance_hit_plain(ts, o, d, cull, cfg.primary_tmin,
+                                  cfg.primary_tmax)
+        hit = want[1] >= 0
+        if not (torch.equal(got[1], want[1])
+                and torch.equal(got[0][hit], want[0][hit])
+                and torch.isinf(got[0][~hit]).all()
+                and torch.equal(got[2], want[2])):
+            raise AssertionError("rtiow_glass: instance_hit differs from "
+                                 "its twin on the camera rays")
+        hits += int(hit.sum())
+    log(f"  rtiow_glass: {lv['instances']} instances under "
+        f"{lv['instance_roots']} instance roots, {meta.num_real_tris} placed "
+        f"tris; {len(angles)} frames at 96x54 through the instance walk; "
+        f"instance_hit equal to its twin on {o.shape[0]} camera rays x 2 "
+        f"culls ({hits} hits); launches {launches}")
 
 
 def main() -> int:
@@ -1457,6 +1570,7 @@ def main() -> int:
                    {"obj": box, "translate": [1.2, 0.0, 0.0],
                     "rotate_y_deg": 30.0},
                    {"obj": box, "translate": [0.0, 1.6, 0.0], "mask": 0}], f)
+    walked = fused_radiance.walks["instances"]
     drive(["--instances", spec, "--envmap", env_path, "--width", "1024",
            "--height", "768", "--bounces", "5", "--frames", "4", "--out",
            os.path.join(inst_dir, "frame.png"), "--raw", "--device", "cuda"],
@@ -1477,11 +1591,14 @@ def main() -> int:
     frame_i = orbit_camera(0.3, cfg_i)
     img_k = fused_radiance(inst, build_scalars(frame_i, cfg_i,
                                                sample_offsets(1), dev), cfg_i)
+    if fused_radiance.walks["instances"] != walked + 5:
+        raise AssertionError("--instances: the frame kernel did not take "
+                             "the instance walk on every frame")
     o, d = generate_rays(frame_i, 256, 192, dev)
     cuda_be = get_backend("cuda")
     for k in counters:
         k.launches = 0
-    img_e = render_pixels(inst, o, d, cfg_i, cuda_be.intersect,
+    img_e = render_pixels(inst.baked(), o, d, cfg_i, cuda_be.intersect,
                           cuda_be.env_contribution)
     torch.cuda.synchronize()
     eager_launches = {k.__name__: k.launches for k in counters}
@@ -1491,10 +1608,11 @@ def main() -> int:
                           "mega_round_queue": 0, "fold_round_sums": 0}:
         raise AssertionError(f"eager instanced render: {eager_launches}")
     inst_diff = image_diff(np, img_k, img_e.reshape(192, 256, 3))
-    check_image("instanced 256x192 frame kernel vs eager integrator (cuda "
-                "backend)", inst_diff)
+    check_image("instanced 256x192 frame kernel (instance walk) vs eager "
+                "integrator over the bake (cuda backend)", inst_diff)
     log(f"  --instances: {inst_meta.num_real_tris} tris from 2 of 3 "
         f"instances, 4 frames at 1024x768; eager launches {eager_launches}")
+    check_rtiow_glass(dev, counters)
 
     # --accumulate, then --resume: 4 + 2 frames of the demo orbit.
     acc_dir = os.path.join(tmp, "acc")

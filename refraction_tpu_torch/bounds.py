@@ -19,11 +19,20 @@ time). The stall instrument's bound also has a latency floor
 length times the FP32 latency can exceed both.
 
     python -m refraction_tpu_torch.bounds --scene X.obj --envmap X.hdr \\
-        --width 1920 --height 1080 --bounces 4 [--spp 4] [--device cuda]
+        --width 1920 --height 1080 --bounces 4 [--spp 4] [--device cuda] \\
+        [--instances SPEC.json]
 
 prints one JSON line: the frame kernel's bound at that shape, the
 traversal work per bounce level and, at spp 1, the bound of the
-wavefront's round-kernel launches for the frame (``round``).
+wavefront's round-kernel launches for the frame (``round``). With
+``--instances`` the scene is the two-level scene of `run.py`'s flag, the
+work is that of the frame kernel's instance walk (instance roots and
+boxes, a transform a box overlapped, then each BLAS), and the wavefront,
+which walks the bake, is not bound (``round`` is None).
+
+These counts are the port's own yardstick of its walks, for developers:
+they move with the tables and the walk. The benchmark's roofline
+(`rtbench/roofline.py`) is a fixed lower bound that no walk change moves.
 """
 
 from __future__ import annotations
@@ -34,14 +43,20 @@ import subprocess
 
 from refraction_tpu_torch.camera import orbit_camera
 from refraction_tpu_torch.config import RenderConfig
+from refraction_tpu_torch.kernels.framekernel import walk_levels
 from refraction_tpu_torch.ops.intersect import (
     BOX_TEST_OPS,
     MT_TEST_OPS,
+    XFORM_OPS,
     traversal_work,
 )
 from refraction_tpu_torch.render import frame_traversal_work
 from refraction_tpu_torch.run import build_config
-from refraction_tpu_torch.scene import load_scene, scene_from_jax
+from refraction_tpu_torch.scene import (
+    load_instanced,
+    load_scene,
+    scene_from_jax,
+)
 from refraction_tpu_torch.timing import card_line, require_device
 
 HBM_BYTES_PER_S = 3.35e12
@@ -103,17 +118,24 @@ def bound(ops: float, nbytes: float, tensor_ops: float = 0) -> dict:
 
 
 def traversal_ops(work: dict) -> int:
-    """FP32 operations of summed traversal_work counts."""
+    """FP32 operations of summed traversal_work counts (a two-level
+    scene's instance boxes and ray transforms too)."""
     boxes = (work["root_tests"] + work["super_tests"] + work["cluster_tests"]
-             + work["sub_tests"])
-    return BOX_TEST_OPS * boxes + MT_TEST_OPS * work["mt_tests"]
+             + work["sub_tests"] + work.get("instance_root_tests", 0)
+             + work.get("instance_tests", 0))
+    return (BOX_TEST_OPS * boxes + MT_TEST_OPS * work["mt_tests"]
+            + XFORM_OPS * work.get("transforms", 0))
 
 
 def table_bytes(scene) -> int:
-    """Bytes of the traversal's tables (triangles, normals, boxes)."""
-    return sum(int(t.numel()) * t.element_size() for t in (
-        scene.tri_packed, scene.tri_norm_packed, scene.cluster_bounds,
-        scene.sub_bounds, scene.super_bounds, scene.root_bounds))
+    """Bytes of the traversal's tables (triangles, normals, boxes; of a
+    two-level scene each BLAS's once and the instance tables)."""
+    tables = (scene.tri_packed, scene.tri_norm_packed, scene.cluster_bounds,
+              scene.sub_bounds, scene.super_bounds, scene.root_bounds,
+              scene.inst_bounds, scene.inst_roots, scene.inst_xform,
+              scene.inst_info)
+    return sum(int(t.numel()) * t.element_size() for t in tables
+               if t is not None)
 
 
 def env_bytes(scene) -> int:
@@ -265,17 +287,20 @@ def main(argv=None) -> int:
     for flag in ("--width", "--height", "--bounces", "--spp"):
         p.add_argument(flag, type=int)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--instances", metavar="SPEC.json")
     args = p.parse_args(argv)
     device = require_device(args.device)
     cfg = build_config(args)
-    scene_np, meta = load_scene(cfg)
+    if args.instances:
+        scene_np, meta = load_instanced(args.instances, cfg)
+    else:
+        scene_np, meta = load_scene(cfg)
     scene = scene_from_jax(scene_np, device)
     levels = frame_traversal_work(scene, cfg, orbit_camera(0.01, cfg), device)
     out = frame_bound(scene, cfg, levels)
-    out.update(round=round_bound(scene, cfg, levels) if cfg.spp == 1 else None,
-               levels=levels, tris=meta.num_real_tris,
-               clusters=scene.num_clusters, supers=scene.num_supers,
-               roots=scene.num_roots,
+    out.update(round=round_bound(scene, cfg, levels)
+               if cfg.spp == 1 and not args.instances else None,
+               levels=levels, tris=meta.num_real_tris, **walk_levels(scene),
                shape=[cfg.width, cfg.height, cfg.max_refract_depth, cfg.spp],
                card=card_line(device))
     print(json.dumps(out), flush=True)

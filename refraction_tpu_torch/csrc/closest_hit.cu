@@ -72,6 +72,54 @@ extern "C" int rt_closest_hit(
   return (int)cudaGetLastError();
 }
 
+// The instance walk of a two-level scene (RT_WALK_INSTANCES) on a batch of
+// rays: the frame kernel's closest hit, checked alone against its plain
+// version (kernels/intersect.instance_hit_plain). idx_out is the winner's
+// key (its instance's key base plus its BLAS table index), -1 on a miss.
+__global__ void rt_instance_hit_kernel(
+    const float* __restrict__ tri, const float* __restrict__ norm,
+    const float* __restrict__ supers, const float* __restrict__ clusters,
+    const float* __restrict__ subs, const float* __restrict__ inst_boxes,
+    const float* __restrict__ inst_roots,
+    const float* __restrict__ inst_xform, const int* __restrict__ inst_info,
+    int n_inst, int n_inst_roots, int sub_tris,
+    const float* __restrict__ origins, const float* __restrict__ dirs,
+    const float* __restrict__ cull, int n, float tmin, float tmax,
+    float* __restrict__ t_out, int* __restrict__ idx_out,
+    float* __restrict__ n_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const RtInstScene scene{
+      RtScene{supers, clusters, subs, tri, norm, 0, 0, 0, sub_tris, nullptr,
+              0},
+      inst_boxes, inst_roots, inst_xform, inst_info, n_inst, n_inst_roots};
+  const RtHit h = rt_closest_hit<RT_WALK_INSTANCES>(
+      scene, origins[3 * i], origins[3 * i + 1], origins[3 * i + 2],
+      dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2], cull[i], tmin, tmax,
+      false);
+  t_out[i] = h.t;
+  idx_out[i] = h.idx;
+  n_out[3 * i] = h.nx;
+  n_out[3 * i + 1] = h.ny;
+  n_out[3 * i + 2] = h.nz;
+}
+
+extern "C" int rt_instance_hit(
+    const float* tri, const float* norm, const float* supers,
+    const float* clusters, const float* subs, const float* inst_boxes,
+    const float* inst_roots, const float* inst_xform, const int* inst_info,
+    int n_inst, int n_inst_roots, int sub_tris, const float* origins,
+    const float* dirs, const float* cull, int n, float tmin, float tmax,
+    float* t_out, int* idx_out, float* n_out, void* stream) {
+  const int block = 128;
+  const int grid = (n + block - 1) / block;
+  rt_instance_hit_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      tri, norm, supers, clusters, subs, inst_boxes, inst_roots, inst_xform,
+      inst_info, n_inst, n_inst_roots, sub_tris, origins, dirs, cull, n, tmin,
+      tmax, t_out, idx_out, n_out);
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* rt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

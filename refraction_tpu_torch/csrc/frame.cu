@@ -91,13 +91,11 @@ struct RtRay {
 // Radiance of one pixel: spp samples of its bounce tree, averaged; each
 // ray's closest hit is traverse_f2b.cuh's walk WALK.
 template <int WALK>
-__device__ __forceinline__ float3 rt_pixel(const RtScene& scene,
-                                           const float* __restrict__ sc,
-                                           const float* __restrict__ env,
-                                           int px, int py, int width,
-                                           int height, int spp, float inv_spp,
-                                           int max_refract, int max_reflect,
-                                           int env_h, int env_w) {
+__device__ __forceinline__ float3 rt_pixel(
+    const typename RtSceneOf<WALK>::type& scene, const float* __restrict__ sc,
+    const float* __restrict__ env, int px, int py, int width, int height,
+    int spp, float inv_spp, int max_refract, int max_reflect, int env_h,
+    int env_w) {
   const float tmin_p = sc[12], tmax_p = sc[13];
   const float tmin_s = sc[14], tmax_s = sc[15];
   const float ior = sc[16], r0 = sc[17];
@@ -173,12 +171,23 @@ __device__ __forceinline__ float3 rt_pixel(const RtScene& scene,
       sub_tris, env_h, env_w
 // The root boxes come last, after a kernel's other arguments, so that the
 // flat and supers instances, which never read them, keep the parameter
-// offsets, and so the instructions, they had before there were roots.
+// offsets, and so the instructions, they had before there were roots; the
+// instance tables of a two-level scene come after them, for the same
+// reason. A two-level scene passes its BLAS tables as tri ... subs.
 #define RT_ROOT_PARAMS const float *__restrict__ roots, int n_roots
+#define RT_INST_PARAMS                                                        \
+  const float *__restrict__ inst_boxes, const float *__restrict__ inst_roots, \
+      const float *__restrict__ inst_xform,                                   \
+      const int *__restrict__ inst_info, int n_inst, int n_inst_roots
 #define RT_SCENE                                                              \
   RtScene {                                                                   \
     supers, clusters, subs, tri, norm, n_supers, n_clusters,                 \
         cluster_size / sub_tris, sub_tris, roots, n_roots                     \
+  }
+#define RT_INST_SCENE                                                         \
+  RtInstScene {                                                               \
+    RT_SCENE, inst_boxes, inst_roots, inst_xform, inst_info, n_inst,          \
+        n_inst_roots                                                          \
   }
 
 // ---- rt_frame, rt_frame_tiles ----------------------------------------
@@ -187,33 +196,47 @@ __device__ __forceinline__ float3 rt_pixel(const RtScene& scene,
 // stack in local memory (L1-resident).
 template <int WALK>
 __global__ void __launch_bounds__(128) rt_frame_kernel(RT_FRAME_PARAMS,
-                                                       RT_ROOT_PARAMS) {
+                                                       RT_ROOT_PARAMS,
+                                                       RT_INST_PARAMS) {
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
-  const float3 c = rt_pixel<WALK>(
-      RT_SCENE, sc, env, px, py, width, height, spp, inv_spp, max_refract,
-      max_reflect, env_h, env_w);
+  float3 c;
+  if constexpr (WALK == RT_WALK_INSTANCES) {
+    c = rt_pixel<WALK>(RT_INST_SCENE, sc, env, px, py, width, height, spp,
+                       inv_spp, max_refract, max_reflect, env_h, env_w);
+  } else {
+    c = rt_pixel<WALK>(RT_SCENE, sc, env, px, py, width, height, spp,
+                       inv_spp, max_refract, max_reflect, env_h, env_w);
+  }
   float* o = out + 3 * ((size_t)py * width + px);
   o[0] = c.x;
   o[1] = c.y;
   o[2] = c.z;
 }
 
-extern "C" int rt_frame(RT_FRAME_PARAMS, RT_ROOT_PARAMS, void* stream) {
+extern "C" int rt_frame(RT_FRAME_PARAMS, RT_ROOT_PARAMS, RT_INST_PARAMS,
+                        void* stream) {
   const dim3 block(16, 8);
   const dim3 grid((width + block.x - 1) / block.x,
                   (height + block.y - 1) / block.y);
+#define RT_FRAME_LAUNCH(WALK)                                                 \
+  rt_frame_kernel<WALK><<<grid, block, 0, (cudaStream_t)stream>>>(            \
+      RT_FRAME_ARGS, roots, n_roots, inst_boxes, inst_roots, inst_xform,      \
+      inst_info, n_inst, n_inst_roots)
+  // A two-level scene passes no roots and no supers of its own (n_inst >
+  // 0 then). The instances are instantiated in the order they had before
+  // the instance walk, which comes last.
   if (n_roots > 0) {
-    rt_frame_kernel<RT_WALK_ROOTS><<<grid, block, 0, (cudaStream_t)stream>>>(
-        RT_FRAME_ARGS, roots, n_roots);
+    RT_FRAME_LAUNCH(RT_WALK_ROOTS);
   } else if (n_supers > 0) {
-    rt_frame_kernel<RT_WALK_SUPERS><<<grid, block, 0, (cudaStream_t)stream>>>(
-        RT_FRAME_ARGS, roots, n_roots);
+    RT_FRAME_LAUNCH(RT_WALK_SUPERS);
+  } else if (n_inst == 0) {
+    RT_FRAME_LAUNCH(RT_WALK_FLAT);
   } else {
-    rt_frame_kernel<RT_WALK_FLAT><<<grid, block, 0, (cudaStream_t)stream>>>(
-        RT_FRAME_ARGS, roots, n_roots);
+    RT_FRAME_LAUNCH(RT_WALK_INSTANCES);
   }
+#undef RT_FRAME_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -267,9 +290,11 @@ extern "C" int rt_frame_tiles(RT_FRAME_PARAMS, int tile_stride,
 // out[0..3] = resident blocks per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers a thread,
 // local memory bytes a thread, threads a block; of rt_frame_kernel in walk
-// RT_WALK_FLAT, RT_WALK_SUPERS or RT_WALK_ROOTS.
+// RT_WALK_FLAT, RT_WALK_SUPERS, RT_WALK_ROOTS or RT_WALK_INSTANCES.
 extern "C" int rt_frame_occupancy(int walk, int* out) {
-  const void* fn = walk == RT_WALK_ROOTS
+  const void* fn = walk == RT_WALK_INSTANCES
+                       ? (const void*)rt_frame_kernel<RT_WALK_INSTANCES>
+                   : walk == RT_WALK_ROOTS
                        ? (const void*)rt_frame_kernel<RT_WALK_ROOTS>
                    : walk == RT_WALK_SUPERS
                        ? (const void*)rt_frame_kernel<RT_WALK_SUPERS>

@@ -52,12 +52,18 @@ SIGNATURES = {
     "rt_env": [_P, _I, _I, _P, _P, _I, _P, _P],
     # variant, env, env4, env_h, env_w, dirs, weight, n, out, stream
     "rt_env_variant": [_I, _P, _P, _I, _I, _P, _P, _I, _P, _P],
+    # tri, norm, supers, clusters, subs, inst_boxes, inst_roots,
+    # inst_xform, inst_info, n_inst, n_inst_roots, sub_tris, origins, dirs,
+    # cull, n, tmin, tmax, t_out, idx_out, n_out, stream
+    "rt_instance_hit": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                        _P, _P, _I, _F, _F, _P, _P, _P, _P],
     # scalars, tri, norm, supers, clusters, subs, env, out, width, height,
     # spp, inv_spp, max_refract, max_reflect, n_supers, n_clusters,
-    # cluster_size, sub_tris, env_h, env_w, roots, n_roots, stream
+    # cluster_size, sub_tris, env_h, env_w, roots, n_roots, inst_boxes,
+    # inst_roots, inst_xform, inst_info, n_inst, n_inst_roots, stream
     "rt_frame": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I,
-                 _I, _I, _I, _I, _I, _I, _P, _I, _P],
-    # walk (0 flat, 1 supers, 2 roots), int[4] out (no stream)
+                 _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P, _I, _I, _P],
+    # walk (0 flat, 1 supers, 2 roots, 3 instances), int[4] out (no stream)
     "rt_frame_occupancy": [_I, _P],
     # the rt_frame arguments up to env_w, then tile_stride, tile_base,
     # n_local, n_tiles_real, roots, n_roots, stream

@@ -45,6 +45,11 @@ from refraction_tpu_torch.kernels.envmap import (
 )
 from refraction_tpu_torch.kernels.intersect import check_scene_tables
 from refraction_tpu_torch.ops.backends import torch_intersect
+from refraction_tpu_torch.scene import (
+    INST_INFO,
+    INST_XFORM,
+    box_runs,
+)
 from refraction_tpu_torch.tracing import span
 
 # Scalar vector layout (as refraction_tpu/kernels/framekernel.py:96-103):
@@ -57,7 +62,7 @@ MAX_STACK = 8
 # Tile edge of the pixel-DP entry; must equal RT_TILE in frame.cu.
 TILE = 32
 # traverse_f2b.cuh RtWalk: the instances' names, by their enum value.
-WALKS = ("flat", "supers", "roots")
+WALKS = ("flat", "supers", "roots", "instances")
 
 
 def build_scalars(frame: CameraFrame, cfg: RenderConfig, offsets: np.ndarray,
@@ -89,14 +94,18 @@ def _frame_from_scalars(sc: np.ndarray) -> CameraFrame:
 def fused_radiance_plain(scene, scalars: torch.Tensor,
                          cfg: RenderConfig) -> torch.Tensor:
     """The frame kernel's plain version: per sample, the same primary rays
-    through the eager wavefront integrator; averaged over samples."""
+    through the eager wavefront integrator; averaged over samples. A
+    two-level scene is rendered as its bake."""
     sc = scalars.detach().cpu().numpy()
     offsets = sc[N_BASE_SCALARS:N_BASE_SCALARS + 2 * cfg.spp].reshape(-1, 2)
-    return render_image(scene, _frame_from_scalars(sc), cfg, offsets,
-                        scalars.device, torch_intersect, env_contribution_plain)
+    return render_image(scene.baked(), _frame_from_scalars(sc), cfg, offsets,
+                        scalars.device, torch_intersect,
+                        env_contribution_plain)
 
 
 def _check_frame_args(scene, scalars, cfg):
+    """The scalars and the frame's shape; the scene's tables, for a
+    two-level scene once a device (`_check_instance_tables`)."""
     dev = scalars.device
     want = N_BASE_SCALARS + 2 * cfg.spp
     if (scalars.dtype != torch.float32 or tuple(scalars.shape) != (want,)
@@ -111,16 +120,58 @@ def _check_frame_args(scene, scalars, cfg):
     if cfg.width < 1 or cfg.height < 1 or cfg.spp < 1:
         raise ValueError(f"bad frame shape {cfg.width}x{cfg.height}, "
                          f"spp {cfg.spp}")
+    if scene.num_instances:
+        if dev not in scene.checked:
+            _check_instance_tables(scene, dev)
+            scene.checked.add(dev)
+        return
     check_scene_tables(scene, dev)
+    check_envmap(scene, dev)
+
+
+def _check_instance_tables(scene, dev) -> None:
+    """A two-level scene's tables: contiguous, of their dtypes and shapes,
+    on ``dev``; each instance's BLAS inside the concatenated tables."""
+    n_tri, n_cl = scene.tri_packed.shape[0], scene.cluster_bounds.shape[0]
+    n_sub, n_sup = scene.sub_bounds.shape[0], scene.super_bounds.shape[0]
+    n_inst = scene.num_instances
+    shapes = {"tri_packed": ((n_tri, 9), torch.float32),
+              "tri_norm_packed": ((n_tri, 9), torch.float32),
+              "cluster_bounds": ((n_cl, 6), torch.float32),
+              "sub_bounds": ((n_sub, 6), torch.float32),
+              "super_bounds": ((n_sup, 6), torch.float32),
+              "inst_bounds": ((n_inst, 6), torch.float32),
+              "inst_roots": ((box_runs(n_inst), 6), torch.float32),
+              "inst_xform": ((n_inst, INST_XFORM), torch.float32),
+              "inst_info": ((n_inst, INST_INFO), torch.int32)}
+    for name, (shape, dtype) in shapes.items():
+        x = getattr(scene, name)
+        if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
+                or not x.is_contiguous()):
+            raise ValueError(
+                f"scene.{name}: want contiguous {dtype} {shape} on {dev}, "
+                f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    tri, cl, sub, sup, n_s, n_c, spc = scene.inst_info_host[:, :7].T
+    if (n_s.min() < 1 or n_c.min() < 1 or (n_c > n_s * 32).any()
+            or (tri + n_c * spc * scene.sub_tris > n_tri).any()
+            or (cl + n_c > n_cl).any() or (sub + n_c * spc > n_sub).any()
+            or (sup + n_s > n_sup).any() or min(tri.min(), cl.min(),
+                                                sub.min(), sup.min()) < 0):
+        raise ValueError("scene.inst_info: an instance's BLAS lies outside "
+                         "the BLAS tables")
     check_envmap(scene, dev)
 
 
 def walk_of(scene) -> str:
     """The traversal instance the CUDA kernels take for ``scene``:
-    ``"roots"`` (root boxes over runs of 32 supers, walked near to far
-    above them: 33-1,024 supers), ``"supers"`` (super boxes and no roots,
-    near to far) or ``"flat"`` (at most 32 clusters, in table order);
+    ``"instances"`` (a two-level scene: instance roots and instance boxes
+    near to far above each BLAS's supers walk), ``"roots"`` (root boxes
+    over runs of 32 supers, walked near to far above them: 33-1,024
+    supers), ``"supers"`` (super boxes and no roots, near to far) or
+    ``"flat"`` (at most 32 clusters, in table order);
     traverse_f2b.cuh RtWalk."""
+    if scene.num_instances:
+        return "instances"
     if scene.num_roots > 0:
         return "roots"
     return "supers" if scene.num_supers > 0 else "flat"
@@ -129,7 +180,17 @@ def walk_of(scene) -> str:
 def walk_levels(scene) -> dict:
     """The levels ``scene``'s walk goes through: its instance (`walk_of`),
     root boxes and super boxes (0 where the walk has no such level),
-    clusters and subs a cluster."""
+    clusters and subs a cluster. For a two-level scene the box counts are
+    summed over its BLASes (subs a cluster over all their clusters), and
+    ``instances`` and ``instance_roots`` count the level above them."""
+    if scene.num_instances:
+        supers = sum(lv[0] for lv in scene.blas_levels)
+        clusters = sum(lv[1] for lv in scene.blas_levels)
+        subs = sum(lv[1] * lv[2] for lv in scene.blas_levels)
+        return {"walk": "instances", "roots": 0, "supers": supers,
+                "clusters": clusters, "subs_per_cluster": subs // clusters,
+                "instances": scene.num_instances,
+                "instance_roots": scene.num_inst_roots}
     return {"walk": walk_of(scene), "roots": scene.num_roots,
             "supers": scene.num_supers, "clusters": scene.num_clusters,
             "subs_per_cluster": scene.cluster_size // scene.sub_tris}
@@ -153,7 +214,8 @@ def fused_radiance(scene, scalars: torch.Tensor,
         out = torch.empty(cfg.height, cfg.width, 3, dtype=torch.float32,
                           device=scalars.device)
         launch("rt_frame", scalars.device,
-               *_frame_args(scene, scalars, cfg, out), *_root_args(scene))
+               *_frame_args(scene, scalars, cfg, out), *_root_args(scene),
+               *_instance_args(scene))
     fused_radiance.launches += 1
     fused_radiance.walks[walk_of(scene)] += 1
     return out
@@ -179,7 +241,8 @@ def frame_occupancy(walk: str, device: torch.device) -> dict:
 
 
 def _frame_args(scene, scalars, cfg, out) -> tuple:
-    """rt_frame's and rt_frame_tiles' first arguments."""
+    """rt_frame's and rt_frame_tiles' first arguments (of a two-level
+    scene its concatenated BLAS tables, and single-mesh counts of 0)."""
     return (scalars.data_ptr(), scene.tri_packed.data_ptr(),
             scene.tri_norm_packed.data_ptr(), scene.super_bounds.data_ptr(),
             scene.cluster_bounds.data_ptr(), scene.sub_bounds.data_ptr(),
@@ -193,6 +256,15 @@ def _frame_args(scene, scalars, cfg, out) -> tuple:
 def _root_args(scene) -> tuple:
     """rt_frame's and rt_frame_tiles' last arguments before the stream."""
     return scene.root_bounds.data_ptr(), scene.num_roots
+
+
+def _instance_args(scene) -> tuple:
+    """rt_frame's last arguments before the stream: a two-level scene's
+    instance tables and counts (None and 0 for a single mesh)."""
+    tables = (scene.inst_bounds, scene.inst_roots, scene.inst_xform,
+              scene.inst_info)
+    return (*(None if t is None else t.data_ptr() for t in tables),
+            scene.num_instances, scene.num_inst_roots)
 
 
 def tile_grid(cfg: RenderConfig) -> tuple[int, int]:
@@ -263,6 +335,9 @@ def frame_tiles(scene, scalars: torch.Tensor, cfg: RenderConfig,
 
     On CUDA: one launch of the frame kernel's pixel-DP entry on the
     current stream of the tensors' device."""
+    if scene.num_instances:
+        raise ValueError("frame_tiles walks one mesh: give it a two-level "
+                         "scene's bake (scene.baked())")
     if scalars.device.type == "cpu":
         return frame_tiles_plain(scene, scalars, cfg, tile_stride, tile_base,
                                  n_local, n_tiles_real)

@@ -6,6 +6,12 @@
 version, ``closest_hit_plain`` (the brute force of ops/intersect.py), for
 CPU tensors. Results on a miss or a dead ray: ``t = +inf``, ``idx = -1``,
 ``normal = 0``.
+
+``instance_hit`` is the frame kernel's instance walk over a two-level
+scene (`scene.InstancedTorchScene`, RT_WALK_INSTANCES) on a batch of
+rays, with the same contract but ``idx`` the winner's key
+(`InstancedTorchScene.owners` names its instance and triangle); its plain
+version is ``instance_hit_plain``, the walk's eager twin.
 """
 
 from __future__ import annotations
@@ -14,9 +20,12 @@ import torch
 
 from refraction_tpu_torch.kernels._build import launch
 from refraction_tpu_torch.ops.intersect import (
+    _safe_inv,
+    _slab,
     interpolate_normal,
     intersect_closest,
     recompute_uv,
+    to_object_space,
 )
 from refraction_tpu_torch.ops.shade import f32
 from refraction_tpu_torch.scene import level_sizes
@@ -113,3 +122,90 @@ def closest_hit(scene, origins, dirs, cull, tmin: float, tmax: float):
 
 
 closest_hit.launches = 0
+
+
+def instance_hit_plain(scene, origins, dirs, cull, tmin: float, tmax: float):
+    """The instance walk's eager twin: per instance (table order) whose
+    world box the ray meets on [tmin, tmax], the ray moved into object
+    space by the instance's world-to-object 3x4 in the kernel's float32
+    operation order (direction not renormalised), the brute force over
+    its BLAS with the faces flipped where the transform mirrors, and the
+    best kept on the pair compare of (t, key); the winner's normal
+    interpolated in object space and taken to world space by the normal
+    matrix. The walk prunes by boxes conservatively and keeps the same
+    winner whatever its order, so this gives what it gives: (t, key,
+    normal) with `closest_hit`'s contract."""
+    n, dev = origins.shape[0], origins.device
+    tmin32 = torch.full((n,), f32(tmin), device=dev)
+    tmax32 = torch.full((n,), f32(tmax), device=dev)
+    best_t = torch.full((n,), float("inf"), device=dev)
+    best_k = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    best_j = torch.zeros(n, dtype=torch.int64, device=dev)
+    best_u = torch.zeros(n, device=dev)
+    best_v = torch.zeros(n, device=dev)
+    inv = _safe_inv(dirs)
+    info = scene.inst_info_host.tolist()
+    sub_tris = scene.sub_tris
+    for j in range(scene.num_instances):
+        box = scene.inst_bounds[j].expand(n, 6)
+        rows = torch.nonzero((cull != 0) & _slab(box, origins, inv, tmin32,
+                                                 tmax32)).squeeze(1)
+        if rows.numel() == 0:
+            continue
+        tri0, _, _, _, _, n_cl, spc, key, flip = info[j]
+        lo, ld = to_object_space(scene.inst_xform[j], origins[rows],
+                                 dirs[rows])
+        tri = scene.tri_packed[tri0:tri0 + n_cl * spc * sub_tris]
+        a, e1, e2 = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
+        front = (cull[rows] > 0) != bool(flip)
+        hit, t, idx = intersect_closest(lo, ld, a, e1, e2, tmin, tmax, front)
+        k = key + idx.to(torch.int64)
+        cur_t, cur_k = best_t[rows], best_k[rows]
+        win = hit & ((t < cur_t) | ((t == cur_t) & (k < cur_k)))
+        u, v = recompute_uv(lo, ld, a, e1, e2, idx)
+        at = rows[win]
+        best_t[at], best_k[at], best_j[at] = t[win], k[win], j
+        best_u[at], best_v[at] = u[win], v[win]
+    hit = best_k >= 0
+    tri0 = scene.inst_info[best_j, 0].to(torch.int64)
+    local = best_k - scene.inst_info[best_j, 7].to(torch.int64)
+    n_obj = interpolate_normal(scene.tri_norm_packed, torch.where(
+        hit, tri0 + local, torch.zeros_like(local)), best_u, best_v)
+    m = scene.inst_xform[best_j, 12:21]
+    normal = torch.stack([m[:, 3 * r] * n_obj[:, 0] + m[:, 3 * r + 1]
+                          * n_obj[:, 1] + m[:, 3 * r + 2] * n_obj[:, 2]
+                          for r in range(3)], dim=1)
+    return (best_t, torch.where(hit, best_k, -1).to(torch.int32),
+            torch.where(hit[:, None], normal, torch.zeros_like(normal)))
+
+
+def instance_hit(scene, origins, dirs, cull, tmin: float, tmax: float):
+    """Closest hit of N rays in a two-level scene through the frame
+    kernel's instance walk: (t (N,), key (N,) int32, normal (N, 3)), as
+    `closest_hit` returns them with the key in place of the index. On CPU
+    tensors its plain version, `instance_hit_plain`."""
+    _check_rays(origins, dirs, cull)
+    if origins.device.type == "cpu":
+        return instance_hit_plain(scene, origins, dirs, cull, tmin, tmax)
+    if origins.device.type != "cuda":
+        raise ValueError(f"instance_hit: unsupported device {origins.device}")
+    n = origins.shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=origins.device)
+    idx = torch.empty(n, dtype=torch.int32, device=origins.device)
+    normal = torch.empty(n, 3, dtype=torch.float32, device=origins.device)
+    if n == 0:
+        return t, idx, normal
+    launch("rt_instance_hit", origins.device,
+           scene.tri_packed.data_ptr(), scene.tri_norm_packed.data_ptr(),
+           scene.super_bounds.data_ptr(), scene.cluster_bounds.data_ptr(),
+           scene.sub_bounds.data_ptr(), scene.inst_bounds.data_ptr(),
+           scene.inst_roots.data_ptr(), scene.inst_xform.data_ptr(),
+           scene.inst_info.data_ptr(), scene.num_instances,
+           scene.num_inst_roots, scene.sub_tris, origins.data_ptr(),
+           dirs.data_ptr(), cull.data_ptr(), n, f32(tmin), f32(tmax),
+           t.data_ptr(), idx.data_ptr(), normal.data_ptr())
+    instance_hit.launches += 1
+    return t, idx, normal
+
+
+instance_hit.launches = 0

@@ -12,6 +12,11 @@ Both follow the IntersectFn contract of integrator.py:
   kernels/envmap.py). On CPU tensors their wrappers take their plain
   versions. The kernels serve the reference's constant 0xff mask only, as
   the Pallas backends do, and raise on a ``ray_mask``.
+
+`instance_intersect` is no backend of its own: the intersect of a
+two-level scene (`scene.InstancedTorchScene`) through the frame kernel's
+instance walk, which the eager integrator renders unbaked (with the
+``cuda`` backend's env), to hold the frame kernel's instance walk to.
 """
 
 from __future__ import annotations
@@ -22,7 +27,11 @@ from refraction_tpu_torch.kernels.envmap import (
     env_contribution,
     env_contribution_plain,
 )
-from refraction_tpu_torch.kernels.intersect import closest_hit, cull_code
+from refraction_tpu_torch.kernels.intersect import (
+    closest_hit,
+    cull_code,
+    instance_hit,
+)
 from refraction_tpu_torch.ops.intersect import intersect_closest
 
 
@@ -60,6 +69,22 @@ def cuda_intersect(scene, origins, dirs, want_front, alive, tmin, tmax,
                                  dirs.contiguous(),
                                  cull_code(want_front, alive), tmin, tmax)
     return idx >= 0, t, idx, normal
+
+
+def instance_intersect(scene, origins, dirs, want_front, alive, tmin, tmax,
+                       ray_mask=None):
+    """Closest hit in a two-level scene through the instance walk
+    (`instance_hit`; on CPU tensors its eager twin): the winner's key in
+    place of a triangle index, and its normal in world space. Per-ray
+    masks raise ValueError, as `cuda_intersect`'s do."""
+    if ray_mask is not None:
+        raise ValueError("instance_intersect serves the constant 0xff mask "
+                         "only")
+    t, key, normal = instance_hit(scene, origins.contiguous(),
+                                  dirs.contiguous(),
+                                  cull_code(want_front, alive), tmin, tmax)
+    return key >= 0, t, key, normal
+
 
 
 def cuda_env_contribution(scene, dirs, weight):

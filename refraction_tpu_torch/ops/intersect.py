@@ -38,6 +38,12 @@ _BIG = f32(3.0e38)
 #     1 add = 52 (the tie-break compare of equal t is not counted).
 BOX_TEST_OPS = 25
 MT_TEST_OPS = 52
+# The instance walk's move of a ray into an instance's object space
+# (traverse_f2b.cuh, visit_instance): the origin through the 3x4, 9
+# multiplies and 9 adds, the direction through its 3x3, 9 multiplies and
+# 6 adds (the inverses of the direction are not counted, as the world
+# ray's are not).
+XFORM_OPS = 33
 # Rays per chunk of traversal_work (bounds its pair temporaries).
 _WORK_CHUNK = 2 ** 15
 
@@ -161,6 +167,88 @@ def _children(r, parent, n_child):
             first.repeat_interleave(size) + pos - start.repeat_interleave(size))
 
 
+def _tree_work(levels, rays, rows, r, out):
+    """Count into ``out`` (at ``rows[r]``) the box tests of ray rows ``r``
+    (indices into ``rays``) under ``levels``, [(boxes, key), ...] from the
+    top: every box of the top level, then the children of those crossed.
+    Returns the (ray row, box) pairs of the last level whose box the ray
+    overlaps."""
+    c = None
+    for k, (boxes, key) in enumerate(levels):
+        if k:
+            r, c = _children(r, c, boxes.shape[0])
+        else:
+            top = torch.arange(boxes.shape[0], device=r.device)
+            r, c = r.repeat_interleave(top.numel()), top.repeat(r.numel())
+        out[key].index_add_(0, rows[r], torch.ones_like(r))
+        r, c = _overlapping(boxes, rays, r, c)
+    return r, c
+
+
+def _mesh_work(levels, sub_bounds, spc, sub_tris, rays, rows, r, out):
+    """Count into ``out`` the box and triangle tests of ray rows ``r`` under
+    one mesh's ``levels`` (roots, supers, clusters, the non-empty ones),
+    its sub boxes (``spc`` a cluster) and triangles (``sub_tris`` a
+    sub)."""
+    r, c = _tree_work(levels, rays, rows, r, out)
+    out["sub_tests"].index_add_(0, rows[r], torch.full_like(r, spc))
+    r = r.repeat_interleave(spc)
+    sub = (c[:, None] * spc
+           + torch.arange(spc, device=r.device)).reshape(-1)
+    r, sub = _overlapping(sub_bounds, rays, r, sub)
+    out["mt_tests"].index_add_(0, rows[r], torch.full_like(r, sub_tris))
+
+
+def to_object_space(x, o, d):
+    """The rays (o, d) moved into object space by world-to-object 3x4
+    rows ``x`` (row-major, (12,) for every ray or (N, >= 12) one a ray),
+    in the instance walk's float32 operation order (traverse_f2b.cuh,
+    visit_instance): (origins, directions), the directions not
+    renormalised, so that t along them is the world t."""
+    lo = torch.stack([x[..., 4 * k] * o[:, 0] + x[..., 4 * k + 1] * o[:, 1]
+                      + x[..., 4 * k + 2] * o[:, 2] + x[..., 4 * k + 3]
+                      for k in range(3)], dim=1)
+    ld = torch.stack([x[..., 4 * k] * d[:, 0] + x[..., 4 * k + 1] * d[:, 1]
+                      + x[..., 4 * k + 2] * d[:, 2] for k in range(3)], dim=1)
+    return lo, ld
+
+
+def _object_rays(scene, j, o, d, tmin, t_hit):
+    """The rays (o, d) moved into instance slot ``j``'s object space (per
+    pair), as the instance walk moves them: the operands `_overlapping`
+    takes."""
+    lo, ld = to_object_space(scene.inst_xform[j], o, d)
+    return lo, _safe_inv(ld), tmin, t_hit
+
+
+def _instance_work(scene, o, d, tmin, t_hit, live, out) -> None:
+    """The instance walk's tests of the live rays: instance roots and
+    boxes (world space), a ray transform for each instance box overlapped,
+    then each such instance's BLAS as `_mesh_work` counts it, in object
+    space."""
+    rays = (o[live], _safe_inv(d[live]), tmin[live], t_hit[live])
+    levels = [(scene.inst_roots, "instance_root_tests"),
+              (scene.inst_bounds, "instance_tests")]
+    levels = [lv for lv in levels if lv[0].shape[0]]
+    local = torch.arange(live.numel(), device=o.device)
+    r, j = _tree_work(levels, rays, live, local, out)
+    out["transforms"].index_add_(0, live[r], torch.ones_like(r))
+    info = torch.as_tensor(scene.inst_info_host, device=o.device)
+    for tri0 in torch.unique(info[:, 0]).tolist():
+        at = info[j, 0] == tri0
+        rr, jj = r[at], j[at]
+        if rr.numel() == 0:
+            continue
+        _, cl, sub, sup, n_sup, n_cl, spc, _, _ = info[jj[0]].tolist()
+        obj = _object_rays(scene, jj, o[live[rr]], d[live[rr]],
+                           rays[2][rr], rays[3][rr])
+        blas = [(scene.super_bounds[sup:sup + n_sup], "super_tests"),
+                (scene.cluster_bounds[cl:cl + n_cl], "cluster_tests")]
+        _mesh_work(blas, scene.sub_bounds[sub:sub + n_cl * spc], spc,
+                   scene.sub_tris, obj, live[rr],
+                   torch.arange(rr.numel(), device=o.device), out)
+
+
 def traversal_work(scene, o: torch.Tensor, d: torch.Tensor, tmin,
                    t_hit: torch.Tensor, cull: torch.Tensor) -> dict:
     """The box and triangle tests N rays need under the scene's hierarchy,
@@ -174,42 +262,45 @@ def traversal_work(scene, o: torch.Tensor, d: torch.Tensor, tmin,
     - ``sub_tests``: the sub boxes of the clusters it overlaps there;
     - ``mt_tests``: the triangles of the subs it overlaps there.
 
+    A two-level scene (`scene.InstancedTorchScene`, the frame kernel's
+    instance walk) adds ``instance_root_tests`` (every instance root),
+    ``instance_tests`` (the instance boxes of the roots overlapped, or
+    every one without roots) and ``transforms`` (a ray moved into the
+    object space of each instance box it overlaps), and counts each such
+    instance's BLAS as above, every super of it first, in object space.
+
     ``t_hit`` is the ray's closest hit t (``tmax`` for a miss), ``tmin`` a
     float or (N,) tensor, ``cull`` the traversal's operand (0: a dead ray,
     no work). Overlap is the traversal's inclusive slab test (`_slab`).
-    Times BOX_TEST_OPS and MT_TEST_OPS, the counts give the FP32 work of a
-    frame (render.frame_traversal_work)."""
+    Times BOX_TEST_OPS, MT_TEST_OPS and XFORM_OPS, the counts give the FP32
+    work of a frame (render.frame_traversal_work): the port's own count of
+    its walk (bounds.py), which moves when the walk's tables do; rtbench's
+    roofline is the benchmark's fixed yardstick."""
     n, dev = o.shape[0], o.device
-    out = {k: torch.zeros(n, dtype=torch.int64, device=dev)
-           for k in ("root_tests", "super_tests", "cluster_tests", "sub_tests",
-                     "mt_tests")}
+    keys = ["root_tests", "super_tests", "cluster_tests", "sub_tests",
+            "mt_tests"]
+    instanced = scene.num_instances > 0
+    if instanced:
+        keys += ["instance_root_tests", "instance_tests", "transforms"]
+    out = {k: torch.zeros(n, dtype=torch.int64, device=dev) for k in keys}
     tmin = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(n)
     t_hit = t_hit.to(torch.float32)
     inv_all = _safe_inv(d)
     # The box levels from the top, each with its table and its test count.
-    levels = [(scene.root_bounds, "root_tests"),
-              (scene.super_bounds, "super_tests"),
-              (scene.cluster_bounds, "cluster_tests")]
-    levels = [lv for lv in levels if lv[0].shape[0]]
-    spc = scene.cluster_size // scene.sub_tris
+    if not instanced:
+        levels = [(scene.root_bounds, "root_tests"),
+                  (scene.super_bounds, "super_tests"),
+                  (scene.cluster_bounds, "cluster_tests")]
+        levels = [lv for lv in levels if lv[0].shape[0]]
+        spc = scene.cluster_size // scene.sub_tris
     for s in range(0, n, _WORK_CHUNK):
         live = torch.nonzero(cull[s:s + _WORK_CHUNK] != 0).squeeze(1) + s
         if live.numel() == 0:
             continue
+        if instanced:
+            _instance_work(scene, o, d, tmin, t_hit, live, out)
+            continue
         rays = (o[live], inv_all[live], tmin[live], t_hit[live])
-        local = torch.arange(live.numel(), device=dev)
-        # Every box of the top level, then the children of those crossed.
-        r, c = torch.cartesian_prod(
-            local, torch.arange(levels[0][0].shape[0], device=dev)).T
-        for k, (boxes, key) in enumerate(levels):
-            if k:
-                r, c = _children(r, c, boxes.shape[0])
-            out[key].index_add_(0, live[r], torch.ones_like(r))
-            r, c = _overlapping(boxes, rays, r, c)
-        out["sub_tests"].index_add_(0, live[r], torch.full_like(r, spc))
-        r = r.repeat_interleave(spc)
-        sub = (c[:, None] * spc + torch.arange(spc, device=dev)).reshape(-1)
-        r, sub = _overlapping(scene.sub_bounds, rays, r, sub)
-        out["mt_tests"].index_add_(0, live[r],
-                                   torch.full_like(r, scene.sub_tris))
+        _mesh_work(levels, scene.sub_bounds, spc, scene.sub_tris, rays, live,
+                   torch.arange(live.numel(), device=dev), out)
     return out

@@ -210,7 +210,8 @@ def render_fused_dp_distributed(cfg: RenderConfig, angle: float, scene=None,
     gloo ``all_gather`` gives every rank all S shards in shard order, and
     `assemble_tiles` makes the (H, W, 3) image on the CPU.
 
-    ``scene`` is a host scene (loaded from ``cfg`` when None), uploaded to
+    ``scene`` is a host scene (loaded from ``cfg`` when None; of a
+    two-level scene its bake, as pixel-DP walks one mesh), uploaded to
     the first local device and copied to the others. Returns the image's
     ``sha256`` (of its float32 bytes), its ``mean``, ``devices_global`` =
     S, and ``matches_single_device``: bit-equality with
@@ -234,7 +235,7 @@ def render_fused_dp_distributed(cfg: RenderConfig, angle: float, scene=None,
     if scene is None:
         scene, _ = load_scene(cfg)
     laps.lap("load_s")
-    first = scene_from_jax(scene, devices[0])
+    first = scene_from_jax(scene, devices[0]).baked()
     scenes = {dev: replicate_scene(first, dev)
               for dev in dict.fromkeys(devices)}
     for dev in scenes:

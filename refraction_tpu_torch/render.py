@@ -43,7 +43,7 @@ from refraction_tpu_torch.integrator import (
 )
 from refraction_tpu_torch.kernels.framekernel import build_scalars, fused_radiance
 from refraction_tpu_torch.kernels.intersect import cull_code
-from refraction_tpu_torch.ops.backends import get_backend
+from refraction_tpu_torch.ops.backends import get_backend, instance_intersect
 from refraction_tpu_torch.ops.intersect import traversal_work
 from refraction_tpu_torch.scene import TorchScene
 from refraction_tpu_torch.tracing import span
@@ -91,6 +91,11 @@ def make_renderer(cfg: RenderConfig, backend: str = "cuda",
     integrator; the ``"torch"`` backend has only its eager path and
     refuses True. ``device`` is where the scalars and rays are made and
     must hold the scene.
+
+    Only the fused path on a CUDA device walks a two-level scene
+    (`scene.InstancedTorchScene`); every other path renders its bake
+    (``scene.baked()``, the scene itself for a single mesh), the fused
+    path's plain version on the CPU too.
     """
     device = torch.device(device)
     backend = resolve_backend(backend, device)
@@ -106,8 +111,8 @@ def make_renderer(cfg: RenderConfig, backend: str = "cuda",
     be = get_backend(backend)
 
     def render_eager(scene: TorchScene, frame: CameraFrame) -> torch.Tensor:
-        return render_image(scene, frame, cfg, offsets, device, be.intersect,
-                            be.env_contribution)
+        return render_image(scene.baked(), frame, cfg, offsets, device,
+                            be.intersect, be.env_contribution)
 
     return render_eager
 
@@ -164,12 +169,16 @@ def frame_traversal_work(scene: TorchScene, cfg: RenderConfig,
     The rays, their intervals and their closest hits come from the eager
     integrator (`integrator.render_pixels`) over the closest-hit kernel on
     CUDA (``cuda`` backend), the brute force on the CPU; the depth-cap
-    level counts a closest hit too. Shading is not counted."""
+    level counts a closest hit too. Shading is not counted. A two-level
+    scene's rays and hits are its instance walk's
+    (`ops.backends.instance_intersect`), and the work is counted under that
+    walk, with the instance level's counts."""
     be = get_backend("cuda" if torch.device(device).type == "cuda" else "torch")
+    intersect = instance_intersect if scene.num_instances else be.intersect
     per_sample: list[list[dict]] = []  # [sample][level] -> summed counts
 
     def recording(scene_, o, d, want_front, alive, tmin, tmax):
-        res = be.intersect(scene_, o, d, want_front, alive, tmin, tmax)
+        res = intersect(scene_, o, d, want_front, alive, tmin, tmax)
         hit, t = res[0] & alive, res[1]
         t_hit = torch.where(hit, t, torch.full_like(t, tmax))
         work = traversal_work(scene_, o, d, tmin, t_hit,

@@ -22,9 +22,11 @@ There is no fallback: ``--device cuda`` without CUDA is an error.
   trace; then the loop runs as usual. On CUDA a trace without device
   activity raises instead of being written.
 - ``--instances SPEC.json`` renders N placed meshes (TLAS with N
-  instances, `scene.load_instanced`); mask-0 instances are
-  dropped at build, and the frame kernel serves the reference's constant
-  0xff ray mask.
+  instances over one BLAS a distinct mesh, `scene.load_instanced`);
+  mask-0 instances are dropped at build. The frame kernel walks the two
+  levels (``walk=instances``) and serves the reference's constant 0xff
+  ray mask; the copies are baked into one mesh only for the paths that
+  walk one (``--backend torch``, ``--heatmap``, ``--devices``).
 - ``--accumulate`` averages the frames into one image and saves the
   float64 state to ``PREFIX_state.npz``; ``--resume STATE.npz`` continues
   it (the state is the JAX package's format, in both directions).
@@ -332,21 +334,24 @@ def main(argv=None) -> int:
         scene_np, meta = load_scene(cfg)
     scene = scene_from_jax(scene_np, device)
     lv = walk_levels(scene)
-    log.info("tris=%d (padded %d), envmap=%s, walk=%s: %d roots, %d "
+    top = (f"{lv['instances']} instances under {lv['instance_roots']} "
+           "instance roots, their BLASes " if "instances" in lv else "")
+    log.info("tris=%d (padded %d), envmap=%s, walk=%s: %s%d roots, %d "
              "supers, %d clusters, %d subs a cluster", meta.num_real_tris,
-             meta.num_padded_tris, scene_np.envmap.shape, lv["walk"],
+             meta.num_padded_tris, scene_np.envmap.shape, lv["walk"], top,
              lv["roots"], lv["supers"], lv["clusters"],
              lv["subs_per_cluster"])
 
     if args.heatmap:
-        counts = render_heatmap(scene, cfg, orbit_camera(args.angle, cfg),
-                                device)
+        counts = render_heatmap(scene.baked(), cfg,
+                                orbit_camera(args.angle, cfg), device)
         write_png(args.heatmap, heatmap_to_rgb(counts))
         log.info("heatmap: max %d rays/pixel, mean %.2f -> %s",
                  int(counts.max()), float(counts.mean()), args.heatmap)
         return 0
 
     if args.mesh:
+        scene = scene.baked()  # pixel-DP walks one mesh
         if backend == "cuda":
             renderer = make_fused_sharded_renderer(cfg, args.mesh)
         else:

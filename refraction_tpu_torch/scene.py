@@ -38,6 +38,7 @@ JAX-built one (numpy or JAX leaves) and copies the leaves bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 from typing import NamedTuple
@@ -50,6 +51,7 @@ from refraction_tpu_torch.bvh.morton import median_split_order
 from refraction_tpu_torch.config import RenderConfig
 from refraction_tpu_torch.io.objmesh import MeshData, parse_obj
 from refraction_tpu_torch.io.texture import load_texture
+from refraction_tpu_torch.tracing import span
 
 # Triangles per sub box, the traversal's finest box level.
 SUB_TRIS = 8
@@ -221,8 +223,7 @@ def _transform_mesh(mesh: MeshData, transform: np.ndarray) -> MeshData:
     if m.shape != (3, 4):
         raise ValueError(f"instance transform must be (3, 4), got {m.shape}")
     lin, t = m[:, :3], m[:, 3]
-    if abs(float(np.linalg.det(lin))) < 1e-12:
-        raise ValueError("instance transform is singular")
+    _check_transform(lin)
     nrm_m = np.linalg.inv(lin).T.astype(np.float32)
     return MeshData(
         positions=(mesh.positions @ lin.T + t).astype(np.float32),
@@ -241,25 +242,158 @@ def merge_meshes(meshes: list[MeshData]) -> MeshData:
     )
 
 
-def build_instanced_scene(instances: list[Instance], envmap: np.ndarray,
-                          cluster_size: int | None = None,
-                          ) -> tuple[Scene, SceneMeta]:
-    """Build one scene from N instances: the baked world-space triangles
-    of all visible instances are merged and sorted together, so traversal
-    is exactly the single-mesh path."""
-    visible = [i for i in instances if i.mask & 0xFF]
-    if not visible:
-        raise ValueError("all instances are masked out (mask & 0xff == 0)")
+# Tiles of a two-level scene's instance tables (csrc/traverse_f2b.cuh
+# RT_INST_XFORM, RT_INST_INFO): per instance, float32 [world->object 3x4 |
+# normal 3x3], and int32 [tri, cluster, sub, super offsets of its BLAS in
+# the concatenated tables | n_supers | n_clusters | subs a cluster | key
+# base | 1 where the transform mirrors].
+INST_XFORM = 21
+INST_INFO = 9
+# Relative pad of a world instance box: sqrt of float32's epsilon times
+# the box's largest coordinate or extent, so the box holds every point the
+# object-space walk can hit in it, through the ray's transform's rounding.
+_INST_PAD = float(np.sqrt(np.finfo(np.float32).eps))
+
+
+def _check_transform(lin: np.ndarray) -> None:
+    if abs(float(np.linalg.det(lin))) < 1e-12:
+        raise ValueError("instance transform is singular")
+
+
+def _bake(instances, envmap: np.ndarray, cluster_size: int | None) -> Scene:
+    """The single-mesh scene of ``instances`` (all visible): each baked
+    into world space (`_transform_mesh`), merged, masks per triangle, and
+    split as one mesh by `build_scene`."""
     baked = [
         i.mesh if i.transform is None else _transform_mesh(i.mesh, i.transform)
-        for i in visible
+        for i in instances
     ]
     merged = merge_meshes(baked)
     tri_mask = np.concatenate([
-        np.full(i.mesh.num_tris, np.int32(i.mask & 0xFF)) for i in visible
+        np.full(i.mesh.num_tris, np.int32(i.mask & 0xFF)) for i in instances
     ]).astype(np.int32)
     cs = cluster_size or auto_cluster_size(merged.num_tris)
-    return build_scene(merged, envmap, cs, tri_mask=tri_mask)
+    return build_scene(merged, envmap, cs, tri_mask=tri_mask)[0]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class InstancedScene:
+    """Host two-level scene (numpy): the TLAS of instances over shared
+    BLASes (RefractionDemo.cpp:272-361 builds one of each).
+
+    ``blas`` holds one `build_scene` table set per distinct `MeshData`
+    (by identity, in first use order), each at its own
+    `auto_cluster_size` (or the ``cluster_size`` given to
+    `build_instanced_scene`). The per-instance arrays list the visible
+    instances in spec order; ``inst_order`` is the instance table's order
+    (a median split of their boxes, so each aligned run of 32 is a node
+    that a root box bounds). `baked` gives the single-mesh scene of the
+    same instances, as `build_instanced_scene` built it before it kept two
+    levels, for the paths that walk one mesh."""
+
+    blas: tuple                  # (Scene, ...) in first use order
+    inst_blas: np.ndarray        # (I,) int32 each instance's BLAS
+    object_to_world: np.ndarray  # (I, 3, 4) float32
+    world_to_object: np.ndarray  # (I, 3, 4) float32
+    normal_matrix: np.ndarray    # (I, 3, 3) float32 inverse-transpose
+    inst_bounds: np.ndarray      # (I, 6) padded world boxes [lo | hi]
+    inst_mask: np.ndarray        # (I,) int32 InstanceMask & 0xFF
+    inst_order: np.ndarray       # (I,) int64 spec index of table slot j
+    envmap: np.ndarray           # (H, W, 3) float32
+    instances: tuple             # the visible Instances, for the bake
+    bake_cluster_size: int | None = None
+
+    @property
+    def num_instances(self) -> int:
+        return int(self.inst_blas.shape[0])
+
+    @functools.cached_property
+    def _baked(self) -> Scene:
+        return _bake(self.instances, self.envmap, self.bake_cluster_size)
+
+    def baked(self) -> Scene:
+        """The single-mesh scene of the visible instances (built at the
+        first call): bit for bit what `build_instanced_scene` returned
+        while it baked every instance."""
+        return self._baked
+
+
+def _blas_points(blas: Scene) -> np.ndarray:
+    """(P, 3) float64: the distinct corners of a BLAS's triangles, as its
+    table holds them (A, A + e1, A + e2)."""
+    a = blas.tri_a.astype(np.float64)
+    pts = np.concatenate([a, a + blas.tri_e1, a + blas.tri_e2])
+    return np.unique(pts, axis=0)
+
+
+def build_instanced_scene(instances: list[Instance], envmap: np.ndarray,
+                          cluster_size: int | None = None,
+                          ) -> tuple[InstancedScene, SceneMeta]:
+    """Build the two-level scene of N instances: one BLAS a distinct mesh,
+    and over them the visible instances' transforms, world boxes and
+    table order (`InstancedScene`). Mask-0 instances are dropped. The
+    meta is the baked scene's (placed triangles, padded to the bake's
+    cluster size ``cluster_size or auto_cluster_size(placed)``)."""
+    with span("rt.scene.instances"):
+        visible = [i for i in instances if i.mask & 0xFF]
+        if not visible:
+            raise ValueError("all instances are masked out "
+                             "(mask & 0xff == 0)")
+        index: dict[int, int] = {}
+        blas = []
+        for i in visible:
+            if id(i.mesh) not in index:
+                index[id(i.mesh)] = len(blas)
+                cs = cluster_size or auto_cluster_size(i.mesh.num_tris)
+                blas.append(build_scene(i.mesh, envmap, cs)[0])
+        corners = [_blas_points(b) for b in blas]
+        o2w, w2o, nrm, boxes = [], [], [], []
+        for i in visible:
+            m = (np.eye(3, 4, dtype=np.float32) if i.transform is None
+                 else np.asarray(i.transform, np.float32))
+            if m.shape != (3, 4):
+                raise ValueError(
+                    f"instance transform must be (3, 4), got {m.shape}")
+            lin, t = m[:, :3], m[:, 3]
+            _check_transform(lin)
+            inv = np.linalg.inv(lin.astype(np.float64))
+            o2w.append(m)
+            w2o.append(np.concatenate([inv, -inv @ t[:, None]], axis=1))
+            # As _transform_mesh computes the bake's normal matrix.
+            nrm.append(np.linalg.inv(lin).T.astype(np.float32))
+            p = corners[index[id(i.mesh)]] @ lin.T.astype(np.float64) + t
+            lo, hi = p.min(axis=0), p.max(axis=0)
+            pad = _INST_PAD * max(float(np.abs(p).max()),
+                                  float((hi - lo).max()), 1e-30)
+            boxes.append(np.concatenate([
+                np.nextafter((lo - pad).astype(np.float32), -np.inf),
+                np.nextafter((hi + pad).astype(np.float32), np.inf)]))
+        bounds = np.stack(boxes).astype(np.float32)
+        n = len(visible)
+        levels = (SUPER_CLUSTERS,)
+        if n > SUPER_CLUSTERS ** 2:
+            levels = (SUPER_CLUSTERS ** 2, SUPER_CLUSTERS)
+        order = median_split_order(bounds.reshape(n, 2, 3), levels)
+        host = InstancedScene(
+            blas=tuple(blas),
+            inst_blas=np.array([index[id(i.mesh)] for i in visible],
+                               np.int32),
+            object_to_world=np.stack(o2w),
+            world_to_object=np.stack(w2o).astype(np.float32),
+            normal_matrix=np.stack(nrm),
+            inst_bounds=bounds,
+            inst_mask=np.array([i.mask & 0xFF for i in visible], np.int32),
+            inst_order=np.asarray(order, np.int64),
+            envmap=np.ascontiguousarray(envmap, dtype=np.float32),
+            instances=tuple(visible),
+            bake_cluster_size=cluster_size)
+        placed = sum(i.mesh.num_tris for i in visible)
+        cs = cluster_size or auto_cluster_size(placed)
+        meta = SceneMeta(num_real_tris=placed,
+                         num_padded_tris=max(_round_up(max(placed, 1), cs),
+                                             cs),
+                         cluster_size=cs)
+    return host, meta
 
 
 def instance_transform(translate=(0.0, 0.0, 0.0), scale=1.0,
@@ -275,7 +409,8 @@ def instance_transform(translate=(0.0, 0.0, 0.0), scale=1.0,
     return m
 
 
-def load_instanced(spec_path: str, cfg: RenderConfig) -> tuple[Scene, SceneMeta]:
+def load_instanced(spec_path: str, cfg: RenderConfig,
+                   ) -> tuple[InstancedScene, SceneMeta]:
     """Load an instanced scene from a JSON spec (the CLI ``--instances``
     format): a list (or {"instances": [...]}) of entries
     ``{"obj": path, "translate": [x,y,z], "scale": s | [sx,sy,sz],
@@ -393,13 +528,127 @@ class TorchScene(NamedTuple):
     def device(self) -> torch.device:
         return self.tri_a.device
 
+    # The instance level rt_frame takes (`InstancedTorchScene`): none.
+    inst_bounds = inst_roots = inst_xform = inst_info = None
+    num_instances = num_inst_roots = 0
 
-def scene_from_jax(scene, device: torch.device | str) -> TorchScene:
+    def baked(self) -> TorchScene:
+        """The single-mesh scene that the paths which walk one mesh
+        render: this one (`InstancedTorchScene.baked` the bake of a
+        two-level scene)."""
+        return self
+
+
+class InstancedTorchScene:
+    """A two-level scene on one device: every BLAS's tables, concatenated
+    BLAS after BLAS, and the instance tables in table order, which the
+    frame kernel's instance walk reads (csrc/traverse_f2b.cuh
+    RT_WALK_INSTANCES). Each BLAS has at least one super box (one over
+    all its clusters where `level_sizes` gives none), since the walk takes
+    RT_WALK_SUPERS below an instance.
+
+    The BLAS tables carry `TorchScene`'s names, and its single-mesh
+    counts are 0: rt_frame takes the instance walk where it is given
+    instances and no supers or roots of the scene's own, and the walk reads
+    each BLAS's counts from ``inst_info``.
+
+    `baked` uploads the host scene's single-mesh bake at its first call
+    (and keeps it), for the paths that walk one mesh; the instance walk
+    never calls it."""
+
+    sub_tris = SUB_TRIS
+    num_roots = num_supers = num_clusters = cluster_size = 0
+
+    def __init__(self, host: InstancedScene, device):
+        put = functools.partial(torch.tensor, device=device)
+        blas = host.blas
+        supers = [box_levels(b.cluster_bounds)[0] for b in blas]
+        supers = [s if s.shape[0] else _run_bounds(b.cluster_bounds, 1)
+                  for s, b in zip(supers, blas)]
+        counts = np.array([[b.num_tris, b.num_clusters,
+                            b.sub_bounds.shape[0], s.shape[0]]
+                           for b, s in zip(blas, supers)], np.int64)
+        offsets = np.cumsum(counts, axis=0) - counts  # tri, cluster, sub, super
+        self.tri_packed = put(np.concatenate([b.tri_packed for b in blas]))
+        self.tri_norm_packed = put(np.concatenate([b.tri_norm_packed
+                                                   for b in blas]))
+        self.cluster_bounds = put(np.concatenate([b.cluster_bounds
+                                                  for b in blas]))
+        self.sub_bounds = put(np.concatenate([b.sub_bounds for b in blas]))
+        self.super_bounds = put(np.concatenate(supers))
+        self.root_bounds = put(np.zeros((0, 6), np.float32))
+        # (supers, clusters, subs a cluster, tris) of each BLAS.
+        self.blas_levels = tuple(
+            (int(c[3]), int(c[1]), int(c[2] // c[1]), int(c[0]))
+            for c in counts)
+        order = host.inst_order
+        which = host.inst_blas[order]
+        # Key base of each instance (spec order): its first triangle's
+        # index in the BLAS tables laid out instance after instance, so
+        # that (instance, triangle) pairs order as keys.
+        sizes = counts[host.inst_blas, 0]
+        self.key_bases = np.cumsum(sizes) - sizes
+        if self.key_bases[-1] + sizes[-1] > np.iinfo(np.int32).max:
+            raise ValueError("the placed triangles overflow the int32 keys")
+        flip = np.linalg.det(host.object_to_world[:, :, :3]
+                             .astype(np.float64)) < 0
+        info = np.concatenate([
+            offsets[which], counts[which][:, 3:4], counts[which][:, 1:2],
+            (counts[which][:, 2] // counts[which][:, 1])[:, None],
+            self.key_bases[order][:, None], flip[order][:, None]], axis=1)
+        # The host copy, for the launch checks and the plain versions.
+        self.inst_info_host = info.astype(np.int64)
+        self.inst_info = put(info.astype(np.int32))
+        self.inst_xform = put(np.concatenate([
+            host.world_to_object.reshape(-1, 12),
+            host.normal_matrix.reshape(-1, 9)], axis=1)[order])
+        self.inst_bounds = put(host.inst_bounds[order])
+        n_roots = box_runs(host.num_instances)
+        self.inst_roots = put(_run_bounds(host.inst_bounds[order], n_roots))
+        self.envmap = put(np.asarray(host.envmap, np.float32))
+        self.host = host
+        self.checked: set = set()  # devices the launch checks passed on
+        self._baked: TorchScene | None = None
+
+    @property
+    def num_instances(self) -> int:
+        return int(self.inst_bounds.shape[0])
+
+    @property
+    def num_inst_roots(self) -> int:
+        return int(self.inst_roots.shape[0])
+
+    def owners(self, keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(instance in spec order, triangle in its BLAS's table) of each
+        winner's key (the instance walk's idx; -1 on a miss gives -1,
+        -1)."""
+        base = torch.as_tensor(self.key_bases, device=keys.device)
+        k = keys.to(torch.int64)
+        inst = torch.searchsorted(base, k, right=True) - 1
+        tri = k - base[inst.clamp_min(0)]
+        miss = k < 0
+        return inst.masked_fill(miss, -1), tri.masked_fill(miss, -1)
+
+    @property
+    def device(self) -> torch.device:
+        return self.envmap.device
+
+    def baked(self) -> TorchScene:
+        """The host scene's bake on this device (uploaded once)."""
+        if self._baked is None:
+            self._baked = scene_from_jax(self.host.baked(), self.device)
+        return self._baked
+
+
+def scene_from_jax(scene, device: torch.device | str):
     """Upload a host scene — the port's `Scene` or a
     `refraction_tpu.scene.Scene` with numpy or JAX leaves — to ``device``.
     Values are copied bit for bit; a scene built by hand without
     ``tri_mask`` keeps None there. The super and root boxes are built
-    here, on the host, from ``cluster_bounds``."""
+    here, on the host, from ``cluster_bounds``. A two-level
+    `InstancedScene` gives its `InstancedTorchScene`."""
+    if isinstance(scene, InstancedScene):
+        return InstancedTorchScene(scene, device)
 
     def put(name, dtype):
         leaf = getattr(scene, name)

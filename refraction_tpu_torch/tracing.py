@@ -24,7 +24,10 @@ one; no name starts with ``rt_frame``, the frame kernel's prefix):
   (enqueueing the add into the card's float64 sum; the first fold there
   also allocates the sum, or uploads a resumed one);
 - ``rt.fold.fetch``: reading `render.Accumulator.sum` while it lives on a
-  card (one synchronising copy of the sum to the host).
+  card (one synchronising copy of the sum to the host);
+- ``rt.scene.instances``: `scene.build_instanced_scene`, set-up of a
+  two-level scene (each distinct mesh's BLAS, the instances' transforms,
+  world boxes and median split).
 """
 
 from __future__ import annotations

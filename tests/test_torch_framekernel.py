@@ -137,8 +137,9 @@ def test_frame_tiles_refuses_a_bad_shard(stride, base, n_local, n_real):
 def test_constants_and_entries_match_the_cuda_source():
     """MAX_STACK and TILE are frame.cu's RT_MAX_STACK and RT_TILE; every
     frame entry the wrappers call is declared with as many arguments as
-    _build.SIGNATURES gives it (the root tables' two last, before the
-    stream), and frame.cu declares no other entry."""
+    _build.SIGNATURES gives it (the root tables' two after the entry's
+    own, then for rt_frame a two-level scene's six instance tables and
+    counts, before the stream), and frame.cu declares no other entry."""
     src = open(os.path.join(_build.CSRC, "frame.cu")).read()
     defs = dict(re.findall(r"#define (RT_\w+) (\d+)", src))
     assert (int(defs["RT_MAX_STACK"]), int(defs["RT_TILE"])) == (MAX_STACK,
@@ -148,11 +149,19 @@ def test_constants_and_entries_match_the_cuda_source():
     n_frame = params.count(",") + 1
     roots = re.search(r"#define RT_ROOT_PARAMS (.*)\n", src).group(1)
     assert roots.count(",") + 1 == 2
-    for entry, extra in (("rt_frame", 1), ("rt_frame_tiles", 5)):
+    inst = re.search(r"#define RT_INST_PARAMS(.*?)\n#define", src,
+                     re.S).group(1)
+    assert inst.count(",") + 1 == 6
+    _P, _I = _build._P, _build._I
+    for entry, extra, tail in (
+            ("rt_frame", 1 + 6, r"RT_ROOT_PARAMS, RT_INST_PARAMS,\s*"),
+            ("rt_frame_tiles", 5, r"RT_ROOT_PARAMS, ")):
         assert re.search(rf'extern "C" int {entry}\(RT_FRAME_PARAMS,'
-                         rf'[^)]*RT_ROOT_PARAMS, void\* stream\)', src), entry
+                         rf'[^)]*{tail}void\* stream\)', src), entry
         assert len(_build.SIGNATURES[entry]) == n_frame + 2 + extra, entry
-        assert _build.SIGNATURES[entry][-3:-1] == [_build._P, _build._I]
+    assert _build.SIGNATURES["rt_frame_tiles"][-3:-1] == [_P, _I]
+    assert _build.SIGNATURES["rt_frame"][-9:-1] == [_P, _I, _P, _P, _P, _P,
+                                                    _I, _I]
     assert re.search(r'extern "C" int rt_frame_occupancy\(int walk, int\* '
                      r'out\)', src)
     assert len(_build.SIGNATURES["rt_frame_occupancy"]) == 2

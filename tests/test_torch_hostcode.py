@@ -384,9 +384,13 @@ def test_load_instanced_equal(tmp_path):
                                        [0, 0, 1, 0]], "mask": 0}]}, f)
     kw = dict(envmap_path=env, scene_path=str(tmp_path / "scene.obj"))
     ours = scene.load_instanced(spec, config.RenderConfig(**kw))
-    _check_scene(ours, jax_scene.load_instanced(spec, jax_config.RenderConfig(**kw)))
+    # The two-level scene's bake is the single-mesh scene the JAX package
+    # builds, bit for bit, under the same meta.
+    baked = (ours[0].baked(), ours[1])
+    _check_scene(baked, jax_scene.load_instanced(spec, jax_config.RenderConfig(**kw)))
     assert ours[1].num_real_tris == prim.make_icosphere(2, 0.9).num_tris + 12
-    assert set(np.unique(ours[0].tri_mask)) == {0, 1, 3}
+    assert set(np.unique(baked[0].tri_mask)) == {0, 1, 3}
+    assert ours[0].num_instances == 2 and len(ours[0].blas) == 2
     _eq_tree(scene.instance_transform((1.0, 2.0, 3.0), 1.5, 20.0),
              jax_scene.instance_transform((1.0, 2.0, 3.0), 1.5, 20.0))
 

@@ -26,9 +26,11 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPANS = {"rt.pose", "rt.upload", "rt.launch", "rt.to_u8", "rt.fold.widen",
-         "rt.fold.add", "rt.fold.card", "rt.fold.fetch"}
+         "rt.fold.add", "rt.fold.card", "rt.fold.fetch", "rt.scene.instances"}
 # Spans of the CUDA branches: the launch, and the fold into a card's sum.
 CARD_SPANS = {"rt.launch", "rt.fold.card", "rt.fold.fetch"}
+# Spans of set-up, outside the frame loop.
+SETUP_SPANS = {"rt.scene.instances"}
 
 
 def _spans(prof) -> dict:
@@ -70,7 +72,7 @@ def test_one_frame_records_the_frame_paths_spans():
     assert done is None and acc.count == 1
     got = _spans(prof)
     # The CPU renders the plain version and folds on the host.
-    assert set(got) == SPANS - CARD_SPANS
+    assert set(got) == SPANS - CARD_SPANS - SETUP_SPANS
     assert all(len(v) == 1 for v in got.values()), got
     (r0, r1), = [(ev.time_range.start, ev.time_range.end)
                  for ev in prof.events() if ev.name == "test.render"]
@@ -107,7 +109,7 @@ def _span_calls(path: str) -> list:
 
 
 def test_the_port_opens_the_six_spans_and_no_other():
-    """Each of the eight names once, as a literal, outside `tracing`; no
+    """Each of the nine names once, as a literal, outside `tracing`; no
     other module records a span of its own (``record_function``)."""
     names = []
     for path in glob.glob(os.path.join(REPO, "refraction_tpu_torch", "**",
@@ -120,3 +122,19 @@ def test_the_port_opens_the_six_spans_and_no_other():
     # rt.launch twice: the full-frame and the pixel-DP wrappers.
     assert sorted(names) == sorted([*SPANS, "rt.launch"])
     assert not any(n.startswith("rt_frame") for n in names)
+
+
+def test_building_a_two_level_scene_records_its_span():
+    """`scene.build_instanced_scene` runs inside ``rt.scene.instances``;
+    uploading and rendering the scene record no further set-up span."""
+    from refraction_tpu_torch.scene import Instance, build_instanced_scene
+
+    mesh = make_icosphere(1, 1.2)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        host, _ = build_instanced_scene([Instance(mesh), Instance(mesh)],
+                                        make_gradient_envmap(16, 32))
+        scene_from_jax(host, "cpu")
+    got = _spans(prof)
+    assert list(got) == ["rt.scene.instances"] and len(got[
+        "rt.scene.instances"]) == 1

@@ -229,8 +229,9 @@ def test_round_kernel_on_each_walk_equals_the_brute_force(cuda, walk):
 
 # sha256 of each kernel's SASS (`cuobjdump -sass` of frame.cu built alone
 # with _build.NVCC_FLAGS; per instruction line, the /*addr*/ prefix and the
-# encoding comments stripped) as the frame kernels were before the root
-# level, and the nvcc release they were recorded with (NVIDIA H100 machine).
+# encoding comments stripped) as the flat and supers instances were before
+# the root level and the roots instance was before the instance walk, and
+# the nvcc release they were recorded with (NVIDIA H100 machine).
 SASS_NVCC = "12.9"
 SASS_BEFORE_ROOTS = {
     "rt_frame_kernel<0>":
@@ -241,6 +242,10 @@ SASS_BEFORE_ROOTS = {
         "164738e401b87526b802d8d5744153228187c4ab2eec3940d9069eb1756e6c5e",
     "rt_frame_tiles_kernel<1>":
         "ddb047b03d009d674cb0176f1f70164c76a4c01ea7c17ad893343431bf499097",
+    "rt_frame_kernel<2>":
+        "23019c4e3d61c9fd8abb4647e0854d04aa85534b057c8096c65d43df94b232dd",
+    "rt_frame_tiles_kernel<2>":
+        "c491d5b647ee1519ae8ca81ab2bde066b02a2464866d9b338a5c88b8b930d34d",
 }
 
 
@@ -267,8 +272,9 @@ def kernel_sass(obj: str) -> dict:
 
 def test_flat_and_supers_frame_kernels_keep_their_instructions(cuda, tmp_path):
     """The flat and supers instances run the instructions they had before
-    the roots instance was added. A change to the flat or supers walk
-    made on purpose changes these hashes too: it records its own in
+    the roots instance was added, and the roots instance those it had
+    before the instance walk was. A change to one of these walks made on
+    purpose changes these hashes too: it records its own in
     SASS_BEFORE_ROOTS, with the nvcc release, in the same change."""
     nvcc = _build.find_nvcc()
     release = re.search(r"release (\S+),", subprocess.run(
@@ -286,5 +292,5 @@ def test_flat_and_supers_frame_kernels_keep_their_instructions(cuda, tmp_path):
         body = next(v for n, v in funcs.items() if n.startswith(mangled))
         assert hashlib.sha256("\n".join(body).encode()).hexdigest() == want, \
             label
-    # The roots instance is there besides them.
-    assert any(n.startswith("_Z15rt_frame_kernelILi2EEv") for n in funcs)
+    # The instance walk is there besides them.
+    assert any(n.startswith("_Z15rt_frame_kernelILi3EEv") for n in funcs)
